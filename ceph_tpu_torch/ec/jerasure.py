@@ -4,9 +4,9 @@ GF(2^8) matrix techniques — ``reed_sol_van`` (default),
 ``reed_sol_r6_op`` (m must be 2), ``cauchy_orig``, ``cauchy_good`` —
 execute on the port's `MatrixECEngine` (the ``gf_words`` CUDA kernel).
 
-The bit-matrix XOR techniques (``liberation``, ``liber8tion``,
-``blaum_roth``) belong to a later slice of the port (``ec/bitmatrix.py``
-and its packet-XOR kernel); here they raise `ECError`.
+Bit-matrix XOR techniques — ``liberation``, ``liber8tion``,
+``blaum_roth`` (all RAID-6, m=2) — execute on `BitMatrixECEngine`
+(``ec/bitmatrix.py``, the ``gf2_packets`` CUDA kernel).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops import rs
+from .bitmatrix import BitMatrixECEngine, build_bitmatrix
 from .interface import ECError, ECProfile, ErasureCodeInterface
 from .torch_backend import MatrixECEngine
 
@@ -34,9 +35,17 @@ class ErasureCodeJerasure(ErasureCodeInterface):
         if self.k + self.m > 256:
             raise ECError("k+m must be <= 256 for w=8")
         if self.technique in BITMATRIX_TECHNIQUES:
-            raise ECError(
-                f"jerasure technique {self.technique!r} is a bitmatrix "
-                f"code: not ported yet (later slice: ec/bitmatrix.py)")
+            if self.m != 2:
+                raise ECError(f"{self.technique} requires m=2")
+            # profile.w None = unspecified → the technique's smallest
+            # valid w (the reference's per-technique DEFAULT_W); an
+            # explicit invalid w raises from the construction
+            bits, self.w = build_bitmatrix(self.technique, self.k,
+                                           profile.w)
+            self.coding_matrix = bits
+            self.engine = BitMatrixECEngine(bits, self.k, self.w,
+                                            device=device)
+            return
         self.w = profile.w or 8
         if self.w != 8:
             raise ECError("GF(2^8) techniques require w=8")

@@ -1,8 +1,9 @@
 """Plugin registry — port of ``ceph_tpu.ec.registry``.
 
-Registers ``jerasure``, ``isa`` and ``torch_cuda``, the port's name for
-jerasure's RS math on the CUDA engine (an exact alias, as ceph_tpu's
-``jax_tpu`` is).  lrc, shec and clay come with a later slice.
+Registers ``jerasure``, ``isa``, ``lrc``, ``shec``, ``clay`` and
+``torch_cuda``, the port's name for jerasure's RS math on the CUDA
+engine (an exact alias, as ceph_tpu's ``jax_tpu`` is).  Every factory
+takes the profile and ``device``.
 """
 
 from __future__ import annotations
@@ -36,10 +37,16 @@ def _load_builtin():
     with _LOAD_LOCK:
         if _BUILTINS_LOADED:
             return
+        from .clay import ErasureCodeClay
         from .isa import ErasureCodeIsa
         from .jerasure import ErasureCodeJerasure
+        from .lrc import ErasureCodeLrc
+        from .shec import ErasureCodeShec
         register_plugin("jerasure", ErasureCodeJerasure)
+        register_plugin("clay", ErasureCodeClay)
         register_plugin("isa", ErasureCodeIsa)
+        register_plugin("lrc", ErasureCodeLrc)
+        register_plugin("shec", ErasureCodeShec)
         register_plugin("torch_cuda", ErasureCodeJerasure)
         _BUILTINS_LOADED = True
 

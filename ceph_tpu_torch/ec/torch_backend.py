@@ -29,7 +29,7 @@ class MatrixECEngine:
         self.coding = coding
         self.k, self.m = k, m
         self.device = resolve_device(device)
-        self._encoder = GFLinear(coding, self.device)
+        self._encoder = GFLinear(coding, device=self.device)
         self._decoders: dict[tuple[int, ...], tuple] = {}
 
     @classmethod
@@ -57,7 +57,7 @@ class MatrixECEngine:
             dm = rs.decode_matrix(self.coding, self.k, list(erasures))
             survivors = [i for i in range(self.k + self.m)
                          if i not in erasures][: self.k]
-            entry = (GFLinear(dm, self.device), survivors)
+            entry = (GFLinear(dm, device=self.device), survivors)
             self._decoders[erasures] = entry
         return entry
 

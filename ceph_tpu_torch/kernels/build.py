@@ -47,6 +47,10 @@ _SIGNATURES = {
     # data, seeds, out, nrows, granules per row, splits, shift_tab,
     # tail_ops, seed_op, stream
     "ctt_crc32c_batch": [_P, _P, _P, _I, _L, _I, _P, _P, _P, _P],
+    # in, out, tables, batch, k, rows, rows per block, 16 B segments, stream
+    "ctt_gf_bytes": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
+    # in, out, masks, batch, rows, n, packet words, stream
+    "ctt_gf2_packets": [_P, _P, _P, _I, _I, _I, _L, _P],
 }
 
 

@@ -3,8 +3,13 @@
 - :func:`gf_matmul_bits` — the plain bitmatrix formulation (bit planes,
   a float32 matmul of 0/1 values, ``& 1``, repack), the CPU
   counterpart of ``gf_jax.gf_matmul_bits``;
+- :func:`gf_matmul_gather` — the table-gather formulation (re-exported
+  from ``gf_bytes``, where it is K4's plain version), the counterpart
+  of ``gf_jax.gf_matmul_gather``;
 - :class:`GFLinear` — the byte API, ``[..., k, n]`` uint8 in and out,
-  through the ``gf_words`` kernel on an int32 view (K3's path);
+  on one of three routes: the ``gf_words`` kernel on an int32 view
+  (K3's path, the default), the ``gf_bytes`` kernel (K4) or the plain
+  bitmatrix product;
 - :class:`GFLinearWords` — the word API, ``[..., k, nw]`` int32 (K1);
 - :class:`GFEncodeDigest` — the write lane's launch: parity through
   ``gf_words`` and a CRC-32C of every data and parity shard through
@@ -23,6 +28,7 @@ import torch
 from ..scrub.crc32c import crc32c_rows
 from ..utils.device import resolve_device
 from .gf import gf_bitmatrix
+from .gf_bytes import gf_matmul_gather, gf_matmul_tables  # noqa: F401
 from .gf_words import gf_matmul_bytes, gf_matmul_words
 
 
@@ -68,17 +74,49 @@ def to_device(data, device, dtype=torch.uint8) -> torch.Tensor:
 
 class GFLinear:
     """A GF(2^8) linear map over batches, byte API: ``[..., k, n]``
-    uint8 → ``[..., m, n]`` uint8 on ``device`` (un-fenced)."""
+    uint8 → ``[..., m, n]`` uint8 on ``device`` (un-fenced).
 
-    def __init__(self, coding: np.ndarray, device=None):
+    Routes (ceph_tpu's backend names in brackets):
+
+    - ``"words"`` (default) — the ``gf_words`` kernel on an int32 view,
+      K3's path [``"auto"`` / ``"pallas"``];
+    - ``"bytes"`` — the ``gf_bytes`` split-nibble kernel, K4's port
+      [``"pallas-v1"``]; ``use_bits=False`` selects it, as it selects
+      the table gather in ceph_tpu;
+    - ``"plain"`` — :func:`gf_matmul_bits`, the bitmatrix formulation in
+      plain PyTorch on any device [``"xla"``].
+
+    On the CPU the kernel routes run their plain versions; a CUDA tensor
+    launches the route's kernel or raises."""
+
+    ROUTES = ("words", "bytes", "plain")
+
+    def __init__(self, coding: np.ndarray, use_bits: bool = True,
+                 backend: str | None = None, device=None):
         self.coding = np.asarray(coding, dtype=np.uint8)
         self.m, self.k = self.coding.shape
+        self.use_bits = use_bits
+        if backend is None:
+            backend = "words" if use_bits else "bytes"
+        if backend not in self.ROUTES:
+            raise ValueError(f"unknown GFLinear backend {backend!r} "
+                             f"(routes: {self.ROUTES})")
+        if not use_bits and backend != "bytes":
+            raise ValueError("use_bits=False is the table route: "
+                             "backend must be 'bytes'")
+        self.backend = backend
         self.device = resolve_device(device)
         self._tables: dict = {}
+        self._bits = (_bit_layout_matrix(self.coding)
+                      if backend == "plain" else None)
 
     def __call__(self, data) -> torch.Tensor:
-        return gf_matmul_bytes(self.coding,
-                               to_device(data, self.device), self._tables)
+        x = to_device(data, self.device)
+        if self.backend == "words":
+            return gf_matmul_bytes(self.coding, x, self._tables)
+        if self.backend == "bytes":
+            return gf_matmul_tables(self.coding, x, self._tables)
+        return gf_matmul_bits(self._bits, x, self.m)
 
 
 class GFLinearWords:

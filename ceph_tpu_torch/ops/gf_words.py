@@ -31,7 +31,8 @@ import torch
 
 from ..kernels import build
 from ..utils.device import resolve_device
-from .gf import GF_MUL_TABLE, gf_mul
+from .gf import gf_mul
+from .gf_bytes import gf_matmul_gather
 
 # K1 _gf_apply_words; K3 _gf_apply_pallas2 (gf_pallas2.py:113) runs
 # through the same kernel on a uint8 -> int32 view
@@ -109,24 +110,9 @@ def _dispatch(t: torch.Tensor, name: str) -> bool:
 
 # -- K1 / K3: gf_words ------------------------------------------------------
 
-def gf_matmul_bytes_plain(coding: np.ndarray,
-                          data: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``[..., k, n]`` uint8 -> ``[..., rows, n]`` uint8
-    by product-table gather and XOR reduce."""
-    coding = np.asarray(coding, dtype=np.uint8)
-    rows, k = coding.shape
-    if data.shape[-2] != k:
-        raise ValueError(f"want [..., {k}, n], got {tuple(data.shape)}")
-    table = torch.from_numpy(GF_MUL_TABLE).to(data.device)
-    idx = data.to(torch.int64)
-    out = torch.zeros(*data.shape[:-2], rows, data.shape[-1],
-                      dtype=torch.uint8, device=data.device)
-    for j in range(rows):
-        for i in range(k):
-            c = int(coding[j, i])
-            if c:
-                out[..., j, :] ^= table[c][idx[..., i, :]]
-    return out
+# plain version of the byte API: the product-table gather and XOR
+# reduce, shared with K4
+gf_matmul_bytes_plain = gf_matmul_gather
 
 
 def gf_matmul_words_plain(coding: np.ndarray,

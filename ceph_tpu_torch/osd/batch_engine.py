@@ -373,7 +373,16 @@ class BatchEngine:
         lanes = ("write", "recon") if lane is None else (lane,)
         return sum(self._flush_lane(ln, reason) for ln in lanes)
 
-    def _flush_lane(self, lane: str, reason: str) -> int:
+    def flush_sync(self, lane: str, reason: str = "manual") -> int:
+        """Dispatch and complete a lane's pending ops inline on the
+        calling thread, bypassing the completion worker, for a
+        submitter that must read its results synchronously (the deep
+        scrub's parity recheck) and must not wait behind flights queued
+        for the worker."""
+        return self._flush_lane(lane, reason, force_inline=True)
+
+    def _flush_lane(self, lane: str, reason: str,
+                    force_inline: bool = False) -> int:
         inline: list[_Flight] = []
         ms = self._lane_knobs(lane)[2]
         with self._flush_lock:
@@ -381,7 +390,8 @@ class BatchEngine:
                 pending, self._pending[lane] = self._pending[lane], []
                 self._pending_bytes[lane] = 0
                 self._armed[lane] = False
-                use_worker = ms > 0 and not self._stopped
+                use_worker = (ms > 0 and not self._stopped
+                              and not force_inline)
             if not pending:
                 return 0
             prefix = "recon_" if lane == "recon" else ""
@@ -540,7 +550,7 @@ class BatchEngine:
             from ..ops.gf_torch import GFLinear
             prog = self._rexec[key] = GFLinear(
                 np.frombuffer(mat, dtype=np.uint8).reshape(m, k),
-                self.device)
+                device=self.device)
         out, event = self._stage_out(prog(self._stage_in(
             self._batch(ops, rows, k, bucket_len))))
         return _Flight("recheck", ops, out[0], event, bucket_len, rows,

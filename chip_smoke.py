@@ -5,30 +5,48 @@
 
 Runs from the root of a checkout and needs one CUDA device; without
 one, or without the package beside it, it exits non-zero and prints no
-result.  Phases (any failure exits non-zero):
+result.  Phases (any failure exits non-zero; each prints its wall
+time):
 
-1. build the four CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc;
+1. build the six CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at a few edge shapes, byte for byte;
-3. drive the main path at full width, launch counts set to 0 first:
-   the ``ec_bench`` encode and decode sweep (EC pool k=8 m=3
-   reed_sol_van, 4 KiB / 64 KiB / 1 MiB stripes, 64 MiB per launch,
-   erasures (0, 9), ``--verify``), the OSD write lane (64 writes of
-   4 MiB objects, then 64 of 64 KiB, engine at the OSD option defaults
-   with a 5 ms flush window), and the recovery lane (the 4 MiB
-   objects rebuilt with shards {1, 9} lost) plus a scrub recheck;
-4. check what came out: every write's data shards against the
-   prepared chunks, its parity against the numpy oracle
+3. drive the main path at full width, launch counts set to 0 first and
+   read after each phase:
+   - ``ec_bench``: encode and decode sweep (EC pool k=8 m=3
+     reed_sol_van, 4 KiB / 64 KiB / 1 MiB stripes, 64 MiB per launch,
+     erasures (0, 9), ``--verify``);
+   - K4 leg: ``GFLinear(backend="bytes")`` on the 1 MiB launch shape,
+     encode and the (0, 9) decode matrix, held equal to the ``words``
+     route, plus edge lengths and k=20 m=4;
+   - plugin sweep: ``ec_bench --verify`` encode and decode at 1 MiB
+     stripes, 64 MiB per launch, erasures (0, 1), for jerasure
+     liberation / liber8tion / blaum_roth (k=6 m=2), shec k=4 m=3 c=2
+     and lrc k=4 m=2 l=3; clay k=4 m=2 d=5 on the host at 8 stripes;
+   - OSD write lane (64 writes of 4 MiB objects, then 64 of 64 KiB,
+     engine at the OSD option defaults with a 5 ms flush window);
+   - recovery lane (the 4 MiB objects rebuilt with shards {1, 9} lost)
+     plus 8 recon-lane rechecks;
+   - deep scrub: digests of all 64 x 11 stored shards and of 8 objects
+     of 16 MiB (segmented), the parity recheck of the 64 stripes with
+     two of them corrupted (through the recovery engine's
+     ``flush_sync`` and standalone), and culprit isolation;
+4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
-   the rebuilt shards against the originals;
-5. time every kernel and its plain version at the main path's shape
-   (CUDA events) and print one ``kernels`` JSON line, then the card's
-   name and power limit, and last ``{"ok": true, "device": ...}``.
+   the rebuilt shards against the originals, every scrub digest
+   against the host CRC-32C, the rechecks and the culprits against the
+   corruptions made;
+5. time every kernel (CUDA graphs of 20 launches, replayed over 5
+   windows of at least 50 ms and 200 launches; median and spread) and
+   its plain version at the main path's shape, and print one
+   ``kernels`` JSON line, then the card's name and power limit, and
+   last ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -42,6 +60,30 @@ LAUNCH_BYTES = 64 << 20                 # data bytes per ec_bench launch
 ERASED = (0, 9)                         # ec_bench decode erasures
 LOST = (1, 9)                           # recovery lane: one data, one parity
 OBJ_BIG, OBJ_SMALL, N_OBJ = 4 << 20, 64 << 10, 64
+PLUGIN_ERASED = (0, 1)                  # plugin sweep decode erasures
+PLUGINS = (                             # (label, ec_bench args, stripes)
+    ("jerasure liberation k=6 m=2",
+     ["--plugin", "jerasure", "--parameter", "technique=liberation",
+      "--parameter", "k=6", "--parameter", "m=2"], 64),
+    ("jerasure liber8tion k=6 m=2",
+     ["--plugin", "jerasure", "--parameter", "technique=liber8tion",
+      "--parameter", "k=6", "--parameter", "m=2"], 64),
+    ("jerasure blaum_roth k=6 m=2",
+     ["--plugin", "jerasure", "--parameter", "technique=blaum_roth",
+      "--parameter", "k=6", "--parameter", "m=2"], 64),
+    ("shec k=4 m=3 c=2",
+     ["--plugin", "shec", "--parameter", "k=4", "--parameter", "m=3",
+      "--parameter", "c=2"], 64),
+    ("lrc k=4 m=2 l=3",
+     ["--plugin", "lrc", "--parameter", "k=4", "--parameter", "m=2",
+      "--parameter", "l=3"], 64),
+    # host numpy only: no kernel runs for clay
+    ("clay k=4 m=2 d=5",
+     ["--plugin", "clay", "--parameter", "k=4", "--parameter", "m=2",
+      "--parameter", "d=5"], 8),
+)
+SCRUB_BIG, N_SCRUB_BIG = 16 << 20, 8    # segmented deep-scrub objects
+CORRUPT_ONE, CORRUPT_PAIR = (0, 2), (1, (1, 9))  # (object, shard(s))
 HBM_BPS = 3.35e12                       # H100 SXM memory rate
 INT8_OPS = 1979e12                      # H100 SXM dense int8 rate
 
@@ -55,15 +97,17 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def crc32c_rows_host(rows: np.ndarray) -> np.ndarray:
-    """Host CRC-32C of every row of [n, L] uint8, slice-by-8 vectorised
-    over rows with the port's host tables (checked against the scalar
-    ``crc32c`` before use)."""
+def crc32c_rows_host(rows: np.ndarray, init=0xFFFFFFFF) -> np.ndarray:
+    """Host CRC-32C of every row of [n, L] uint8 from the raw register
+    ``init`` (scalar or [n]), slice-by-8 vectorised over rows with the
+    port's host tables (checked against the scalar ``crc32c`` before
+    use)."""
     from ceph_tpu_torch.scrub.crc32c import _T8, _TABLE
     t8 = [np.asarray(t, dtype=np.uint32) for t in _T8]
     tab = np.asarray(_TABLE, dtype=np.uint32)
     n, length = rows.shape
-    c = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
+    c = np.zeros(n, dtype=np.uint32) ^ np.uint32(init) \
+        if np.isscalar(init) else np.asarray(init, dtype=np.uint32).copy()
     n8 = length & ~7
     words = np.ascontiguousarray(rows[:, :n8]).view("<u4").reshape(n, -1, 2)
     for g in range(words.shape[1]):
@@ -78,8 +122,28 @@ def crc32c_rows_host(rows: np.ndarray) -> np.ndarray:
     return c ^ np.uint32(0xFFFFFFFF)
 
 
-def time_cuda(torch, fn, iters: int) -> float:
-    """Mean ms per call over ``iters`` calls, CUDA events, warm."""
+def crc32c_long_host(objs: np.ndarray, piece: int = 64 << 10) -> np.ndarray:
+    """Host CRC-32C of every row of [n, L] uint8 (L a multiple of
+    ``piece``): pieces digested side by side by
+    :func:`crc32c_rows_host`, then chained with crc(A||B) = T(crc(A))
+    ^ crc(B), T the linear map of ``piece`` zero bytes on the raw
+    register (its 32 columns from the same host CRC)."""
+    n, length = objs.shape
+    parts = crc32c_rows_host(objs.reshape(-1, piece)).reshape(n, -1)
+    unit = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32))
+    cols = crc32c_rows_host(np.zeros((32, piece), dtype=np.uint8),
+                            init=unit) ^ np.uint32(0xFFFFFFFF)
+    c = parts[:, 0]
+    for p in range(1, parts.shape[1]):
+        bits = (c[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+        c = np.bitwise_xor.reduce(np.where(bits == 1, cols, 0), axis=1,
+                                  dtype=np.uint32) ^ parts[:, p]
+    return c
+
+
+def time_plain(torch, fn, iters: int = 2) -> float:
+    """Mean ms per call of a plain version over ``iters`` calls, CUDA
+    events, warm (the plain versions upload tables; no graph)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -90,6 +154,43 @@ def time_cuda(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_kernel(torch, fn, windows: int = 5, min_ms: float = 50.0,
+                min_launches: int = 200, per_graph: int = 20):
+    """(median ms per launch, min, max, launches per window) over
+    ``windows`` windows.  ``fn`` (one kernel launch, its tables held)
+    is captured ``per_graph`` times into a CUDA graph, so the host's
+    per-call cost does not leave the card idle between launches; each
+    window replays the graph for at least ``min_ms`` and
+    ``min_launches`` launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def window(replays):
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (replays * per_graph)
+
+    probe = window(2)
+    replays = max(math.ceil(min_launches / per_graph),
+                  math.ceil(min_ms / max(probe * per_graph, 1e-6)))
+    per = sorted(window(replays) for _ in range(windows))
+    return per[len(per) // 2], per[0], per[-1], replays * per_graph
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -117,12 +218,16 @@ def main():
         fail("torch.cuda.is_available() is false: chip_smoke needs a GPU")
     try:
         from ceph_tpu_torch.kernels import build
+        from ceph_tpu_torch.ec import bitmatrix as BM
         from ceph_tpu_torch.ec import create_erasure_code
+        from ceph_tpu_torch.ops import gf_bytes as GB
         from ceph_tpu_torch.ops import rs
         from ceph_tpu_torch.ops import gf_words as W
+        from ceph_tpu_torch.ops.gf_torch import GFLinear
         from ceph_tpu_torch.osd.batch_engine import BatchEngine
         from ceph_tpu_torch.parallel.decode_plan import decode_plan
         from ceph_tpu_torch.scrub import crc32c as C
+        from ceph_tpu_torch.scrub import engine as S
         from ceph_tpu_torch.tools import ec_bench
     except ImportError as e:
         fail(f"ceph_tpu_torch is not importable beside chip_smoke.py: {e}")
@@ -136,11 +241,19 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
 
+    t_start = time.perf_counter()
+    phase_t = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - phase_t[0]:.1f} s wall "
+            f"({now - t_start:.1f} s since start)")
+        phase_t[0] = now
+
     # -- 1. build ---------------------------------------------------------
-    t0 = time.perf_counter()
     build.build(verbose=True)
     build.library()
-    log(f"[build] {time.perf_counter() - t0:.1f} s")
+    phase_done("build")
 
     coding = rs.reed_sol_van_matrix(K, M)
     plan = decode_plan(coding, K, M, LOST)
@@ -161,6 +274,17 @@ def main():
         "crc32c_batch": rand_u8(2 * K, big),
     }
     shapes["gf_planes"] = W.gf_expand_words(shapes["gf_expand"])
+    # K4 leg: the same 1 MiB launch shape as gf_words, as bytes
+    shapes["gf_bytes"] = shapes["gf_words"]
+    # plugin sweep: a 64 MiB launch of 1 MiB liberation k=6 stripes
+    lib_ec = create_erasure_code({"plugin": "jerasure",
+                                  "technique": "liberation", "k": 6,
+                                  "m": 2})
+    lib_chunk = lib_ec.get_chunk_size(SIZES[2])
+    lib_bits = lib_ec.coding_matrix
+    shapes["gf2_packets"] = rand_u8(LAUNCH_BYTES // SIZES[2],
+                                    lib_ec.k * lib_ec.w,
+                                    lib_chunk // lib_ec.w)
     seeds = torch.from_numpy(rng.integers(0, 2 ** 32, size=(2 * K,),
                                           dtype=np.uint32).view(np.int32)
                              ).to(dev)
@@ -181,6 +305,13 @@ def main():
         "crc32c_batch": (lambda: C.crc32c_rows(shapes["crc32c_batch"], seeds),
                          lambda: C.crc32c_rows_plain(shapes["crc32c_batch"],
                                                      seeds)),
+        "gf_bytes": (lambda: GB.gf_matmul_tables(coding, shapes["gf_bytes"],
+                                                 tables),
+                     lambda: GB.gf_matmul_gather(coding, shapes["gf_bytes"])),
+        "gf2_packets": (lambda: BM.gf2_packets(lib_bits,
+                                               shapes["gf2_packets"], tables),
+                        lambda: BM.gf2_packets_plain(lib_bits,
+                                                     shapes["gf2_packets"])),
     }
     errs = {}
     for name, (kern, plain) in runs.items():
@@ -209,8 +340,17 @@ def main():
     rp = W.ResidentPlanes(x)
     if not torch.equal(rp.multiply(dm), W.gf_matmul_bytes_plain(dm, x)):
         fail("ResidentPlanes disagrees with the plain GF matmul")
+    # K10: the decode inverse (R = k*w rows, two row tiles) and packets
+    # that are not a multiple of 4 or 16 bytes
+    lib_inv, _ = lib_ec.engine._inverse_for(PLUGIN_ERASED)
+    for pw in (1, 7, 100, 1001):
+        x = rand_u8(3, lib_ec.k * lib_ec.w, pw)
+        for mat in (lib_bits, lib_inv):
+            if not torch.equal(BM.gf2_packets(mat, x),
+                               BM.gf2_packets_plain(mat, x)):
+                fail(f"gf2_packets disagrees at pw={pw}")
     torch.cuda.synchronize()
-    log("[check] edge shapes ok")
+    phase_done("kernel checks")
 
     # -- 3. the main path, counted ------------------------------------------
     build.reset_counts()
@@ -222,6 +362,7 @@ def main():
         now = build.counts()
         phase_counts[name] = {k: now[k] - mark[k] for k in now}
         mark = now
+        phase_done(name)
 
     sweep = {}
     common = ["--plugin", "torch_cuda", "--parameter", f"k={K}",
@@ -240,6 +381,45 @@ def main():
             f"{enc['GBps']} GB/s, decode {dec['GBps']} GB/s "
             f"(host clock, synchronised per launch)")
     close_phase("ec_bench")
+
+    # K4 leg: GFLinear's "bytes" route against its "words" route
+    k4_in = rand_u8(LAUNCH_BYTES // SIZES[2], K, SIZES[2] // K)
+    k4_out = {}
+    for label, mat in (("encode", coding), ("decode (0, 9)", dm)):
+        by = GFLinear(mat, backend="bytes", device=dev)
+        wo = GFLinear(mat, backend="words", device=dev)
+        got = by(k4_in)
+        if not torch.equal(got, wo(k4_in)):
+            fail(f"K4 leg {label}: bytes route differs from words route")
+        k4_out[label] = got
+        log(f"[k4] {label} {list(k4_in.shape)} -> {list(got.shape)}: "
+            f"bytes route equals words route")
+    for n in (4, 100, 1000, 4096 + 36):
+        for k, m in ((K, M), (20, 4)):
+            mat = rs.reed_sol_van_matrix(k, m)
+            x = rand_u8(3, k, n)
+            if not torch.equal(GFLinear(mat, backend="bytes", device=dev)(x),
+                               GFLinear(mat, device=dev)(x)):
+                fail(f"K4 leg: bytes route differs at k={k} m={m} n={n}")
+    torch.cuda.synchronize()
+    log("[k4] edge shapes (n 4/100/1000/4132, k=8 m=3 and k=20 m=4) ok")
+    close_phase("k4_leg")
+
+    plugin_runs = {}
+    for label, args, stripes in PLUGINS:
+        t0 = time.perf_counter()
+        size_args = ["--size", str(SIZES[2]), "--batch", str(stripes),
+                     "--iterations", "3", "--verify"]
+        enc = ec_bench.run(args + size_args + ["--workload", "encode"])
+        dec = ec_bench.run(args + size_args + [
+            "--workload", "decode", "--erased", str(PLUGIN_ERASED[0]),
+            "--erased", str(PLUGIN_ERASED[1])])
+        plugin_runs[label] = (enc["GBps"], dec["GBps"])
+        log(f"[plugins] {label}: {stripes} x 1 MiB stripes, parity and "
+            f"decode verified; encode {enc['GBps']} GB/s, decode "
+            f"{dec['GBps']} GB/s, {time.perf_counter() - t0:.1f} s wall "
+            f"(host clock)")
+    close_phase("plugin_sweep")
 
     ec = create_erasure_code({"plugin": "torch_cuda", "k": K, "m": M,
                               "technique": "reed_sol_van"})
@@ -287,10 +467,50 @@ def main():
     chunks = [ec.encode_prepare(o) for o in wdata[:8]]
     rechecks = [reng.submit_recheck(ec, c) for c in chunks]
     rechecked = [c.result(timeout=600) for c in rechecks]
+    close_phase("recovery_lane")
+
+    # deep scrub over what the write lane stored
+    scrub = S.ScrubEngine(device=dev)
+    big_objs = rng.integers(0, 256, size=(N_SCRUB_BIG, SCRUB_BIG),
+                            dtype=np.uint8)
+    payloads = {(o, i): shards[i]
+                for o, (shards, _h) in enumerate(written["4MiB"])
+                for i in range(K + M)}
+    payloads.update({("big", o): big_objs[o] for o in range(N_SCRUB_BIG)})
+    t0 = time.perf_counter()
+    digests = scrub.compute_digests(payloads)
+    log(f"[scrub] digests of {N_OBJ} x {K + M} shards + {N_SCRUB_BIG} x "
+        f"16 MiB objects ({scrub.segmented_objects} segmented): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"{scrub.device_digest_bytes} of {scrub.digest_bytes} bytes on "
+        f"the card")
+    stripes = {o: dict(shards) for o, (shards, _h)
+               in enumerate(written["4MiB"])}
+
+    def corrupt(obj, shard):
+        buf = bytearray(stripes[obj][shard])
+        buf[12345] ^= 0x5A
+        stripes[obj][shard] = bytes(buf)
+
+    corrupt(*CORRUPT_ONE)
+    for shard in CORRUPT_PAIR[1]:
+        corrupt(CORRUPT_PAIR[0], shard)
+    t0 = time.perf_counter()
+    recheck_lane = scrub.recheck_parity(ec, stripes, batch=reng)
+    t1 = time.perf_counter()
+    recheck_alone = scrub.recheck_parity(ec, stripes)
+    t2 = time.perf_counter()
+    culprit = S.isolate_culprit(ec, stripes[CORRUPT_ONE[0]])
+    culprits = S.isolate_culprits(ec, stripes[CORRUPT_PAIR[0]])
+    t3 = time.perf_counter()
+    log(f"[scrub] recheck of {N_OBJ} stripes: {(t1 - t0) * 1e3:.1f} ms "
+        f"through the recovery engine's flush_sync, "
+        f"{(t2 - t1) * 1e3:.1f} ms standalone; culprit isolation "
+        f"{(t3 - t2) * 1e3:.1f} ms (host clock)")
     reng.stop()
     for t in timers:
         t.join(timeout=10)
-    close_phase("recovery_lane")
+    close_phase("deep_scrub")
 
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
@@ -298,14 +518,26 @@ def main():
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    for phase, name in (("k4_leg", "gf_bytes"),
+                        ("plugin_sweep", "gf2_packets")):
+        if phase_counts[phase][name] <= 0:
+            fail(f"kernel {name} was not launched on its phase {phase}")
 
     # -- 4. the results are right -------------------------------------------
     probe = rng.integers(0, 256, size=(3, 1000), dtype=np.uint8)
     host = crc32c_rows_host(probe)
     if any(int(host[i]) != C.crc32c(probe[i]) for i in range(3)):
         fail("host CRC-32C reference disagrees with scalar crc32c")
+    probe = probe[:, :768]
+    if any(int(h) != C.crc32c(r)
+           for h, r in zip(crc32c_long_host(probe, piece=256), probe)):
+        fail("host long-row CRC-32C reference disagrees with scalar crc32c")
+    host_oracle = rs.encode_oracle(coding, k4_in[0].cpu().numpy())
+    if not np.array_equal(k4_out["encode"][0].cpu().numpy(), host_oracle):
+        fail("K4 leg: encode differs from the numpy oracle")
+    shard_crc = {}
     for label, objs in (("4MiB", wdata), ("64KiB", sdata)):
-        rows, digests = [], []
+        rows, digests_w = [], []
         for obj, (shards, hinfos) in zip(objs, written[label]):
             data = ec.encode_prepare(obj)
             want = np.concatenate([data, rs.encode_oracle(coding, data)])
@@ -314,10 +546,11 @@ def main():
                     fail(f"write lane {label}: shard {i} differs from "
                          f"the numpy oracle encode")
                 rows.append(np.frombuffer(shards[i], dtype=np.uint8))
-                digests.append(hinfos[i])
+                digests_w.append(hinfos[i])
         ref = crc32c_rows_host(np.stack(rows))
-        if not np.array_equal(ref, np.asarray(digests, dtype=np.uint32)):
+        if not np.array_equal(ref, np.asarray(digests_w, dtype=np.uint32)):
             fail(f"write lane {label}: hinfo digests differ from host crc32c")
+        shard_crc[label] = ref
         log(f"[verify] write lane {label}: {len(rows)} shards and hinfos "
             f"equal the numpy oracle encode + host crc32c")
     for (shards, _h), got in zip(written["4MiB"], rebuilt):
@@ -329,6 +562,32 @@ def main():
             fail("recheck parity differs from the oracle")
     log(f"[verify] recovery lane: {N_OBJ} objects, shards {LOST} equal "
         f"the originals; 8 rechecks equal the oracle")
+    scrub_shards = np.asarray([digests[(o, i)] for o in range(N_OBJ)
+                               for i in range(K + M)], dtype=np.uint32)
+    if not np.array_equal(scrub_shards, shard_crc["4MiB"]):
+        fail("deep scrub: shard digests differ from host crc32c")
+    big_ref = crc32c_long_host(big_objs)
+    if any(digests[("big", o)] != int(big_ref[o])
+           for o in range(N_SCRUB_BIG)):
+        fail("deep scrub: segmented digests differ from host crc32c")
+    bad = {CORRUPT_ONE[0], CORRUPT_PAIR[0]}
+    for how, rep in (("flush_sync", recheck_lane),
+                     ("standalone", recheck_alone)):
+        if {o for o, flag in rep.items() if flag} != bad:
+            fail(f"deep scrub: {how} recheck flagged "
+                 f"{sorted(o for o, f in rep.items() if f)}, want "
+                 f"{sorted(bad)}")
+    if culprit != CORRUPT_ONE[1]:
+        fail(f"deep scrub: isolate_culprit gave {culprit}, want "
+             f"{CORRUPT_ONE[1]}")
+    if tuple(culprits) != CORRUPT_PAIR[1]:
+        fail(f"deep scrub: isolate_culprits gave {culprits}, want "
+             f"{CORRUPT_PAIR[1]}")
+    log(f"[verify] deep scrub: {len(scrub_shards)} shard digests and "
+        f"{N_SCRUB_BIG} segmented digests equal host crc32c; both "
+        f"rechecks flag objects {sorted(bad)}; culprit {culprit}, "
+        f"pair {tuple(culprits)}")
+    phase_done("verify")
 
     # -- 5. timings -----------------------------------------------------------
     def bound(nbytes, ops):
@@ -337,7 +596,9 @@ def main():
 
     gw, ge = shapes["gf_words"], shapes["gf_expand"]
     gp, gc = shapes["gf_planes"], shapes["crc32c_batch"]
+    g2 = shapes["gf2_packets"]
     rows_p = plan.matrix.shape[0]
+    r2, n2 = lib_bits.shape
     work = {
         # read k rows + write m rows; bit-matrix MACs 8m x 8k per byte column
         "gf_words": (gw.numel() * (K + M) // K,
@@ -350,12 +611,18 @@ def main():
         # read each row once (+ seeds, digests); GF(2) matvec 32 x 8L a row
         "crc32c_batch": (gc.numel() + 8 * gc.shape[0],
                          2 * 32 * 8 * gc.numel()),
+        # as gf_words, on bytes
+        "gf_bytes": (gw.numel() * (K + M) // K,
+                     2 * 64 * K * M * gw.numel() // K),
+        # read N packets, write R; 0/1 MACs R x N per bit column
+        "gf2_packets": (g2.numel() * (r2 + n2) // n2,
+                        2 * r2 * 8 * g2.numel()),
     }
     log(f"[clocks] before timing: {clocks()}")
     entries = []
     for name, (kern, plain) in runs.items():
-        ms = time_cuda(torch, kern, 20)
-        plain_ms = time_cuda(torch, plain, 2)
+        ms, lo, hi, n_win = time_kernel(torch, kern)
+        plain_ms = time_plain(torch, plain)
         b_ms, b_by = bound(*work[name])
         k = build.KERNELS[name]
         shape = (shapes[name].shape if name != "gf_words"
@@ -365,11 +632,13 @@ def main():
             "replaces": k.replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": list(shape)})
-        log(f"[time] {name} {list(shape)}: {ms:.4f} ms (plain "
+            "shape": list(shape), "ms_min": lo, "ms_max": hi,
+            "window_launches": n_win})
+        log(f"[time] {name} {list(shape)}: {ms:.4f} ms median of 5 windows "
+            f"of {n_win} launches (spread {lo:.4f}-{hi:.4f} ms; plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}) on {card}")
-
     log(f"[clocks] after timing: {clocks()}")
+    phase_done("timings")
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

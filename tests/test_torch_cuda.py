@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from ceph_tpu_torch.ec import bitmatrix as BM
 from ceph_tpu_torch.kernels import build
+from ceph_tpu_torch.ops import gf_bytes as GB
 from ceph_tpu_torch.ops import gf_words as W
 from ceph_tpu_torch.ops import rs
 from ceph_tpu_torch.scrub import crc32c as C
@@ -54,6 +56,44 @@ def test_planes_match_plain(dev, k, m):
     rp = W.ResidentPlanes(x[..., :700])
     assert torch.equal(rp.multiply(coding),
                        W.gf_matmul_bytes_plain(coding, x[..., :700]))
+
+
+@pytest.mark.parametrize("k,m", [(2, 1), (8, 3), (20, 4), (128, 128)])
+@pytest.mark.parametrize("n", [4, 100, 4096, 4096 + 36])
+def test_gf_bytes_matches_plain(dev, k, m, n):
+    coding = rs.reed_sol_van_matrix(k, m)
+    dm = rs.decode_matrix(coding, k, list(range(min(m, k))))
+    x = _u8(dev, 2, 3, k, n, seed=n + k)
+    before = GB.GF_BYTES.launches
+    for mat in (coding, dm):
+        assert torch.equal(GB.gf_matmul_tables(mat, x),
+                           GB.gf_matmul_gather(mat, x))
+    assert GB.GF_BYTES.launches == before + 2
+
+
+@pytest.mark.parametrize("technique,k", [("liberation", 6),
+                                         ("liber8tion", 6),
+                                         ("blaum_roth", 6)])
+@pytest.mark.parametrize("pw", [1, 7, 64, 1000])
+def test_gf2_packets_matches_plain(dev, technique, k, pw):
+    bits, w = BM.build_bitmatrix(technique, k, None)
+    eng = BM.BitMatrixECEngine(bits, k, w, device=dev)
+    inv, _ = eng._inverse_for((0, 3))
+    x = _u8(dev, 3, k * w, pw, seed=pw)
+    before = BM.GF2_PACKETS.launches
+    for mat in (bits, inv):
+        assert torch.equal(BM.gf2_packets(mat, x),
+                           BM.gf2_packets_plain(mat, x))
+    assert BM.GF2_PACKETS.launches == before + 2
+
+
+def test_gf2_packets_many_rows(dev):
+    """More than 32 output rows and a long selector: several row
+    tiles and more than one staged mask chunk."""
+    rng = np.random.default_rng(3)
+    mat = (rng.random((70, 5000)) < 0.3).astype(np.int8)
+    x = _u8(dev, 2, 5000, 12, seed=5)
+    assert torch.equal(BM.gf2_packets(mat, x), BM.gf2_packets_plain(mat, x))
 
 
 @pytest.mark.parametrize("n,length", [(1, 1), (5, 100), (3, 4096),

@@ -93,15 +93,21 @@ def test_from_coding_uses_the_same_matrix():
 @pytest.mark.parametrize("technique", ["liberation", "liber8tion",
                                        "blaum_roth"])
 def test_bitmatrix_techniques_raise(technique):
-    with pytest.raises(ECError, match="bitmatrix"):
+    """The bitmatrix techniques are RAID-6 codes: any m but 2 raises, as
+    in ceph_tpu; m=2 builds on the bitmatrix engine."""
+    with pytest.raises(ECError, match="m=2"):
         create_erasure_code({"plugin": "jerasure", "technique": technique,
-                             "k": 4, "m": 2}, device="cpu")
+                             "k": 4, "m": 3}, device="cpu")
+    ec = create_erasure_code({"plugin": "jerasure", "technique": technique,
+                              "k": 4, "m": 2}, device="cpu")
+    assert type(ec.engine).__name__ == "BitMatrixECEngine"
 
 
 def test_registry():
-    assert {"jerasure", "isa", "torch_cuda"} <= set(list_plugins())
+    assert {"jerasure", "isa", "torch_cuda", "lrc", "shec", "clay"} \
+        <= set(list_plugins())
     with pytest.raises(ECError, match="unknown"):
-        create_erasure_code({"plugin": "lrc", "k": 4, "m": 2}, device="cpu")
+        create_erasure_code({"plugin": "nope", "k": 4, "m": 2}, device="cpu")
 
 
 @pytest.mark.parametrize("workload", ["encode", "decode"])

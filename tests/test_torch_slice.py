@@ -2,6 +2,9 @@
 
 - seeded writes → the port's engine → two shards erased →
   reconstruct, equal to ceph_tpu's engine on the same ops;
+- seeded writes → deep scrub (digests, recheck through the recovery
+  lane, culprit) for an RS pool and a bitmatrix pool, equal to
+  ceph_tpu's scrub of the same writes;
 - import hygiene: nothing in ``ceph_tpu_torch`` (nor ``chip_smoke.py``)
   imports jax or ceph_tpu;
 - entry points raise without CUDA unless ``device="cpu"``;
@@ -17,14 +20,19 @@ import torch
 
 from ceph_tpu.ec import create_erasure_code as j_create
 from ceph_tpu.osd.batch_engine import BatchEngine as JBatchEngine
+from ceph_tpu.scrub import engine as JS
+from ceph_tpu_torch.ec import bitmatrix as BM
 from ceph_tpu_torch.ec import create_erasure_code
 from ceph_tpu_torch.ec.torch_backend import MatrixECEngine
 from ceph_tpu_torch.kernels import build
+from ceph_tpu_torch.ops import gf_bytes as GB
 from ceph_tpu_torch.ops import gf_words as W
 from ceph_tpu_torch.ops import rs
 from ceph_tpu_torch.ops.gf_torch import GFEncodeDigest, GFLinear
 from ceph_tpu_torch.osd.batch_engine import BatchEngine
 from ceph_tpu_torch.scrub import crc32c as C
+from ceph_tpu_torch.scrub import engine as S
+from ceph_tpu_torch.scrub.engine import ScrubEngine
 from ceph_tpu_torch.utils.device import resolve_device
 
 # the suite shares the CPU with timing-sensitive cluster tests: keep
@@ -70,6 +78,47 @@ def test_slice_write_erase_reconstruct_matches_jax(flush_ms):
             assert C.crc32c(got[cid]) == hinfos[cid]
 
 
+@pytest.mark.parametrize("prof", [
+    PROFILE, {"plugin": "jerasure", "technique": "liber8tion", "k": 4,
+              "m": 2}], ids=["rs-k8m3", "liber8tion-k4m2"])
+def test_slice_write_then_deep_scrub_matches_jax(prof):
+    rng = np.random.default_rng(29)
+    payloads = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+                for n in (6000, 6000, 2500, 6000)]
+    ec = create_erasure_code(prof, device="cpu")
+    jec = j_create(dict(prof, plugin="jax_tpu")
+                   if prof["plugin"] == "torch_cuda" else prof)
+    kw = dict(flush_ms=1000.0, max_ops=1000, max_bytes=1 << 30)
+
+    def run(eng, code, scrub, iso):
+        comps = [eng.submit_encode(code, p) for p in payloads]
+        eng.drain()
+        written = [c.result(timeout=30) for c in comps]
+        digests = scrub.compute_digests(
+            {(o, i): b for o, (shards, _h) in enumerate(written)
+             for i, b in shards.items()})
+        stripes = {o: dict(shards) for o, (shards, _h) in enumerate(written)}
+        bad = bytearray(stripes[2][1])
+        bad[7] ^= 0x10
+        stripes[2][1] = bytes(bad)
+        recheck = scrub.recheck_parity(code, stripes, batch=eng)
+        culprit = iso(code, stripes[2])
+        eng.stop()
+        return written, digests, recheck, culprit
+
+    got = run(BatchEngine("t", device="cpu", **kw), ec,
+              ScrubEngine(device_min_rows=2, device="cpu"),
+              S.isolate_culprit)
+    want = run(JBatchEngine("j", **kw), jec,
+               JS.ScrubEngine(device_min_rows=2), JS.isolate_culprit)
+    assert got == want
+    written, digests, recheck, culprit = got
+    assert all(digests[(o, i)] == hinfos[i]
+               for o, (_s, hinfos) in enumerate(written) for i in hinfos)
+    assert [o for o, flag in recheck.items() if flag] == [2]
+    assert culprit == 1
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -97,6 +146,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: create_erasure_code(PROFILE),
                  lambda: MatrixECEngine(coding, 4, 2),
                  lambda: GFLinear(coding),
+                 lambda: GFLinear(coding, backend="bytes"),
+                 lambda: BM.BitMatrixECEngine(
+                     *BM.build_bitmatrix("liberation", 4, None)[:1], 4, 5),
+                 lambda: create_erasure_code({"plugin": "shec", "k": 4,
+                                              "m": 3, "c": 2}),
+                 lambda: create_erasure_code({"plugin": "lrc", "k": 4,
+                                              "m": 2, "l": 3}),
+                 lambda: ScrubEngine(),
                  lambda: GFEncodeDigest(coding),
                  lambda: BatchEngine("t"),
                  lambda: W.ResidentPlanes(np.zeros((4, 512), np.uint8)),
@@ -118,6 +175,10 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
                             lambda *a, _n=name, **k: called.append(_n))
     monkeypatch.setattr(C, "crc32c_rows_plain",
                         lambda *a, **k: called.append("crc"))
+    monkeypatch.setattr(GB, "gf_matmul_gather",
+                        lambda *a, **k: called.append("gather"))
+    monkeypatch.setattr(BM, "gf2_packets_plain",
+                        lambda *a, **k: called.append("packets"))
     coding = rs.reed_sol_van_matrix(4, 2)
     meta = dict(device="meta")
     calls = [
@@ -131,6 +192,11 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
             coding, torch.empty(2, 128, 16, dtype=torch.int8, **meta)),
         lambda: C.crc32c_rows(
             torch.empty(2, 64, dtype=torch.uint8, **meta)),
+        lambda: GB.gf_matmul_tables(
+            coding, torch.empty(2, 4, 64, dtype=torch.uint8, **meta)),
+        lambda: BM.gf2_packets(
+            np.eye(3, dtype=np.int8),
+            torch.empty(2, 3, 64, dtype=torch.uint8, **meta)),
     ]
     for call in calls:
         with pytest.raises((ValueError, RuntimeError)):
@@ -157,7 +223,7 @@ def test_kernel_launch_path_raises_without_its_library(monkeypatch):
 
 def test_every_kernel_is_registered_with_its_source():
     assert set(build.KERNELS) == {"gf_words", "gf_expand", "gf_planes",
-                                  "crc32c_batch"}
+                                  "crc32c_batch", "gf_bytes", "gf2_packets"}
     for kern in build.KERNELS.values():
         assert (REPO / kern.source).exists()
         path, line = kern.replaces.split(":")
