@@ -19,6 +19,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,12 +39,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry name -> argtypes; every entry returns cudaGetLastError()
 _SIGNATURES = {
-    # in, out, table, batch, k, rows, nw, stream
-    "ctt_gf_words": [_P, _P, _P, _I, _I, _I, _L, _P],
+    # in, out, tables, batch, k, rows, rows per block, nw, stream
+    "ctt_gf_words": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
     # in, planes, batch, k, nw, stream
     "ctt_gf_expand": [_P, _P, _I, _I, _L, _P],
-    # planes, out, cols, batch, k32, rows, nw, stream
-    "ctt_gf_planes": [_P, _P, _P, _I, _I, _I, _L, _P],
+    # planes, out, B fragments, batch, k, rows, rows per block, nw,
+    # stream
+    "ctt_gf_planes": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
     # data, seeds, out, nrows, granules per row, splits, shift_tab,
     # tail_ops, seed_op, stream
     "ctt_crc32c_batch": [_P, _P, _P, _I, _L, _I, _P, _P, _P, _P],
@@ -104,6 +106,37 @@ def _digest(paths: list[Path]) -> str:
     return h.hexdigest()
 
 
+def _short_name(mangled: str) -> str:
+    """``<name>_kernel<args>`` from a mangled template kernel name (each
+    identifier is prefixed by its length), else the name unchanged."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):        # the length may follow a hash
+            name = mangled[m.end():m.end() + int(m.group()[i:])]
+            rest = mangled[m.end() + len(name):]
+            if name.endswith("_kernel") and rest.startswith("I"):
+                args = re.findall(r"L[a-z](\d+)E", rest.split("EEv")[0])
+                return f"{name}<{', '.join(args)}>"
+    return mangled
+
+
+def ptxas_report(stem: str) -> list[str]:
+    """``-Xptxas -v`` lines of one source's last build, one per kernel
+    variant: ``<entry>: <registers, barriers>; <stack, spills>``."""
+    path = BUILD_DIR / (stem + ".log")
+    if not path.exists():
+        return []
+    out, entry, props = [], None, ""
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = _short_name(line.split("'")[1])
+        elif "bytes stack frame" in line:
+            props = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            out.append(f"{entry}: {line.split(':', 1)[1].strip()}; {props}")
+            entry = None
+    return out
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -135,6 +168,8 @@ def build(verbose: bool = False) -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for s, o in zip(srcs, objs)]
         logs = [p.communicate()[0] for p in procs]
+        for s, log in zip(srcs, logs):
+            (BUILD_DIR / (s.stem + ".log")).write_text(log)
         for s, p, log in zip(srcs, procs, logs):
             if verbose or p.returncode:
                 print(f"[nvcc {s.name}]\n{log}", flush=True)

@@ -31,8 +31,7 @@ import torch
 
 from ..kernels import build
 from ..utils.device import resolve_device
-from .gf import gf_mul
-from .gf_bytes import gf_matmul_gather
+from .gf_bytes import gf_matmul_gather, nibble_tables
 
 # K1 _gf_apply_words; K3 _gf_apply_pallas2 (gf_pallas2.py:113) runs
 # through the same kernel on a uint8 -> int32 view
@@ -51,6 +50,10 @@ GF_PLANES = build.register(
 _WORD = 4
 # dynamic shared memory the kernels may take without an opt-in
 _SMEM_LIMIT = 48 * 1024
+_ROW_TILE = 8           # gf_words: output rows held in registers
+_K_CHUNK = 8            # gf_words: input rows loaded together
+_COEF_BYTES = 32        # gf_words: LO and HI table of one coefficient
+_FRAG_BYTES = 256       # gf_planes: one k32 x n8 B tile, all 32 lanes
 
 
 def block_diag4(bitmat: np.ndarray) -> np.ndarray:
@@ -63,27 +66,25 @@ def block_diag4(bitmat: np.ndarray) -> np.ndarray:
     return out
 
 
-def word_table(coding: np.ndarray) -> np.ndarray:
-    """[rows, k] GF(2^8) matrix -> [rows, k, 8] uint32 SWAR table:
-    entry (j, i, s) is ``coding[j, i] * x^s`` repeated in all 4 bytes."""
-    coding = np.asarray(coding, dtype=np.uint8)
-    prod = gf_mul(coding[:, :, None],
-                  (1 << np.arange(8, dtype=np.uint32)).astype(np.uint8))
-    return prod.astype(np.uint32) * np.uint32(0x01010101)
-
-
-def plane_cols(coding: np.ndarray) -> np.ndarray:
-    """[rows, k] GF(2^8) matrix -> [32k, rows] uint32: bit q of entry
-    (r, t) is ``block_diag4(bits)[q * rows + t, r]`` — the K2 matrix
-    with its int32 repack folded in."""
+def plane_frags(coding: np.ndarray) -> np.ndarray:
+    """[rows, k] GF(2^8) matrix -> the K2 kernel's B operand,
+    ``[rows, ceil(8k/32), 32, 2]`` uint32: one diagonal block of
+    :func:`block_diag4` (all four are the bit-layout matrix) as a
+    ``[K = 8k, N = 8 rows]`` product with output row t in n8 tile t,
+    column s' (bit s'), K (plane rows ``s * k + i`` of one byte position)
+    zero-padded to k32 steps, laid out as the ``mma.m16n8k32`` B
+    fragments of each lane: register h of lane ``4 g + tig`` in (tile t,
+    step ks) holds K ``32 ks + 16 h + 4 tig + 0..3`` of column g."""
     from .gf_torch import _bit_layout_matrix
     coding = np.asarray(coding, dtype=np.uint8)
-    rows = coding.shape[0]
-    bd = block_diag4(_bit_layout_matrix(coding)).astype(np.uint64)
-    bd = bd.reshape(32, rows, bd.shape[1])          # [q, t, r]
-    w = np.left_shift(np.uint64(1), np.arange(32, dtype=np.uint64))
-    cols = (bd * w[:, None, None]).sum(0)           # [t, r]
-    return np.ascontiguousarray(cols.T).astype(np.uint32)
+    rows, k = coding.shape
+    kt = -(-8 * k // 32)
+    bits = _bit_layout_matrix(coding).astype(np.uint8)  # [s' rows + t, 8k]
+    b = np.zeros((rows, 8, kt * 32), dtype=np.uint8)    # [t, s', K]
+    b[:, :, :8 * k] = bits.reshape(8, rows, 8 * k).transpose(1, 0, 2)
+    # [t, g, ks, h, tig, p] -> [t, ks, g, tig, h, p]
+    b = b.reshape(rows, 8, kt, 2, 4, 4).transpose(0, 2, 1, 4, 3, 5)
+    return np.ascontiguousarray(b).reshape(rows, kt, 32, 8).view("<u4")
 
 
 def _check_cuda(t: torch.Tensor, dtype, name: str):
@@ -122,20 +123,25 @@ def gf_matmul_words_plain(coding: np.ndarray,
     return gf_matmul_bytes_plain(coding, by).view(torch.int32)
 
 
-def _launch_gf_words(table: torch.Tensor, words: torch.Tensor,
+def _launch_gf_words(tables: torch.Tensor, words: torch.Tensor,
                      rows: int, k: int) -> torch.Tensor:
     _check_cuda(words, torch.int32, "gf_words")
     if words.dim() != 3 or words.shape[1] != k:
         raise ValueError(f"gf_words: want [B, {k}, nw], got "
                          f"{tuple(words.shape)}")
-    if rows * k * 8 * 4 > _SMEM_LIMIT:
-        raise ValueError(f"gf_words: [{rows}, {k}] matrix exceeds the "
-                         f"kernel's shared-memory table")
+    # rows sharing one block's tables (k padded to the kernel's chunk of
+    # input rows): the register tile of 8, fewer if the tables fill
+    # shared memory; the rest tile over the grid
+    kpad = -(-k // _K_CHUNK) * _K_CHUNK
+    rows_per_block = min(rows, _ROW_TILE,
+                         _SMEM_LIMIT // (kpad * _COEF_BYTES))
+    if rows_per_block < 1:
+        raise ValueError(f"gf_words: k={k} tables exceed shared memory")
     bsz, _, nw = words.shape
     out = torch.empty(bsz, rows, nw, dtype=torch.int32, device=words.device)
     rc = build.library().ctt_gf_words(
-        words.data_ptr(), out.data_ptr(), table.data_ptr(), bsz, k, rows,
-        nw, build.stream_ptr(words.device))
+        words.data_ptr(), out.data_ptr(), tables.data_ptr(), bsz, k, rows,
+        rows_per_block, nw, build.stream_ptr(words.device))
     build.check(rc, "gf_words")
     GF_WORDS.count()
     return out
@@ -152,8 +158,8 @@ def gf_matmul_words(coding: np.ndarray, words: torch.Tensor,
         return gf_matmul_words_plain(coding, words)
     lead, nw = words.shape[:-2], words.shape[-1]
     table = build.device_table(
-        {} if cache is None else cache, ("words", coding.tobytes()),
-        lambda: word_table(coding), words.device)
+        {} if cache is None else cache, ("nibbles", coding.tobytes()),
+        lambda: nibble_tables(coding), words.device)
     out = _launch_gf_words(table, words.reshape(-1, k, nw), rows, k)
     return out.reshape(*lead, rows, nw)
 
@@ -244,16 +250,19 @@ def gf_matmul_planes(coding: np.ndarray, planes: torch.Tensor,
     x = planes.reshape(-1, k32, nw)
     if not x.is_cuda or x.dtype != torch.int8 or not x.is_contiguous():
         raise ValueError("gf_planes: want contiguous CUDA int8 planes")
-    if k32 * rows * 4 > _SMEM_LIMIT:
-        raise ValueError("gf_planes: matrix exceeds the shared table")
-    cols = build.device_table(
+    # output rows whose B operand shares one block's shared copy; the
+    # rest tile over the grid
+    nt_per_block = min(rows, _SMEM_LIMIT // (-(-8 * k // 32) * _FRAG_BYTES))
+    if nt_per_block < 1:
+        raise ValueError(f"gf_planes: k={k} exceeds the shared B operand")
+    frags = build.device_table(
         {} if cache is None else cache, ("planes", coding.tobytes()),
-        lambda: plane_cols(coding), planes.device)
+        lambda: plane_frags(coding), planes.device)
     out = torch.empty(x.shape[0], rows, nw, dtype=torch.int32,
                       device=planes.device)
     rc = build.library().ctt_gf_planes(
-        x.data_ptr(), out.data_ptr(), cols.data_ptr(), x.shape[0], k32,
-        rows, nw, build.stream_ptr(planes.device))
+        x.data_ptr(), out.data_ptr(), frags.data_ptr(), x.shape[0], k,
+        rows, nt_per_block, nw, build.stream_ptr(planes.device))
     build.check(rc, "gf_planes")
     GF_PLANES.count()
     return out.view(torch.uint8).reshape(*lead, rows, nw * _WORD)

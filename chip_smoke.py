@@ -8,9 +8,13 @@ one, or without the package beside it, it exits non-zero and prints no
 result.  Phases (any failure exits non-zero; each prints its wall
 time):
 
-1. build the six CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc;
+1. build the six CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
+   and print the ``-Xptxas -v`` registers and spills of ``gf_words`` and
+   ``gf_planes``;
 2. hold each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at a few edge shapes, byte for byte;
+   the main path's shapes and at edge shapes (odd lengths; for
+   ``gf_words`` and ``gf_planes`` rows beyond their register tiles, word
+   counts off their vector width, batch 1), byte for byte;
 3. drive the main path at full width, launch counts set to 0 first and
    read after each phase:
    - ``ec_bench``: encode and decode sweep (EC pool k=8 m=3
@@ -38,9 +42,10 @@ time):
    corruptions made;
 5. time every kernel (CUDA graphs of 20 launches, replayed over 5
    windows of at least 50 ms and 200 launches; median and spread) and
-   its plain version at the main path's shape, and print one
-   ``kernels`` JSON line, then the card's name and power limit, and
-   last ``{"ok": true, "device": ...}``.
+   its plain version at the main path's shape, and gf_words at the lrc
+   plugin's per-stripe layer shapes; print one ``kernels`` JSON line,
+   then the card's name and power limit, and last
+   ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ PLUGINS = (                             # (label, ec_bench args, stripes)
       "--parameter", "d=5"], 8),
 )
 SCRUB_BIG, N_SCRUB_BIG = 16 << 20, 8    # segmented deep-scrub objects
+LRC_CHUNK = 256 << 10                   # lrc k=4 chunk of a 1 MiB stripe
 CORRUPT_ONE, CORRUPT_PAIR = (0, 2), (1, (1, 9))  # (object, shard(s))
 HBM_BPS = 3.35e12                       # H100 SXM memory rate
 INT8_OPS = 1979e12                      # H100 SXM dense int8 rate
@@ -253,6 +259,9 @@ def main():
     # -- 1. build ---------------------------------------------------------
     build.build(verbose=True)
     build.library()
+    for stem in ("gf_words", "gf_planes"):
+        for line in build.ptxas_report(stem):
+            log(f"[ptxas] {stem}.cu {line}")
     phase_done("build")
 
     coding = rs.reed_sol_van_matrix(K, M)
@@ -340,6 +349,29 @@ def main():
     rp = W.ResidentPlanes(x)
     if not torch.equal(rp.multiply(dm), W.gf_matmul_bytes_plain(dm, x)):
         fail("ResidentPlanes disagrees with the plain GF matmul")
+    # gf_words tilings: rows beyond the register tile of 8 (the square
+    # decode matrix, the 9-row recovery plan, 17 rows), word counts off
+    # the 4-word segment (masked tail), batch 1
+    for mat in (dm, plan.matrix, rs.reed_sol_van_matrix(K, 17)):
+        for bsz, nw in ((1, 1), (1, 4099), (3, 127), (1, 32768)):
+            x = rand_u8(bsz, mat.shape[1], 4 * nw).view(torch.int32)
+            if not torch.equal(W.gf_matmul_words(mat, x),
+                               W.gf_matmul_words_plain(mat, x)):
+                fail(f"gf_words disagrees at rows={mat.shape[0]} "
+                     f"batch={bsz} nw={nw}")
+    # gf_planes tilings: 1, 3, 9 rows (n8 tiles held in registers), word
+    # counts 1, 127, 389 (bytewise plane loads), batch 1
+    for rows_e in (1, 3, 9):
+        mat = plan.matrix[:rows_e]
+        for bsz, nw in ((1, 1), (2, 127), (1, 389), (1, 4096)):
+            pl = W.gf_expand_words(rand_u8(bsz, K, 4 * nw))
+            if not torch.equal(W.gf_matmul_planes(mat, pl),
+                               W.gf_matmul_planes_plain(mat, pl)):
+                fail(f"gf_planes disagrees at rows={rows_e} batch={bsz} "
+                     f"nw={nw}")
+    log("[check] gf_words edge shapes (rows 8/9/17, nw 1/127/4099/32768, "
+        "batch 1 and 3) and gf_planes edge shapes (rows 1/3/9, nw "
+        "1/127/389/4096, batch 1 and 2) equal their plain versions")
     # K10: the decode inverse (R = k*w rows, two row tiles) and packets
     # that are not a multiple of 4 or 16 bytes
     lib_inv, _ = lib_ec.engine._inverse_for(PLUGIN_ERASED)
@@ -637,6 +669,24 @@ def main():
         log(f"[time] {name} {list(shape)}: {ms:.4f} ms median of 5 windows "
             f"of {n_win} launches (spread {lo:.4f}-{hi:.4f} ms; plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}) on {card}")
+    # the lrc plugin's per-stripe layer launches (2694 of gf_words' in
+    # the plugin sweep): kernel alone in graph windows, and the wrapper's
+    # host wall per call as the plugin makes it
+    for mat_shape in ((1, 3), (2, 4)):
+        mat = coding[:mat_shape[0], :mat_shape[1]]
+        x = rand_u8(mat_shape[1], LRC_CHUNK)
+        ms, lo, hi, _ = time_kernel(
+            torch, lambda: W.gf_matmul_bytes(mat, x, tables))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            W.gf_matmul_bytes(mat, x, tables)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 200 * 1e3
+        log(f"[time] gf_words lrc layer {list(mat_shape)} x "
+            f"{[mat_shape[1], LRC_CHUNK]} B: {ms:.4f} ms median of 5 "
+            f"windows (spread {lo:.4f}-{hi:.4f} ms); {wall:.4f} ms host "
+            f"wall per call on {card}")
     log(f"[clocks] after timing: {clocks()}")
     phase_done("timings")
     log(json.dumps({"kernels": entries}))

@@ -58,6 +58,49 @@ def test_planes_match_plain(dev, k, m):
                        W.gf_matmul_bytes_plain(coding, x[..., :700]))
 
 
+def _i32(dev, *shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=shape,
+                                         dtype=np.int64).astype(np.int32)
+                            ).to(dev)
+
+
+@pytest.mark.parametrize("k,rows", [(8, 3), (8, 8), (8, 9), (8, 17),
+                                    (3, 12), (200, 3), (1536, 1)])
+@pytest.mark.parametrize("batch,nw", [(1, 1), (1, 5), (2, 127),
+                                      (3, 1024), (1, 4099)])
+def test_gf_words_edge_shapes(dev, k, rows, batch, nw):
+    """Rows beyond the register tile (grid.y tiles), shared-memory-bound
+    k, word counts that are not a multiple of the 4-word segment, and
+    batch 1, through the word API."""
+    rng = np.random.default_rng(k * rows + nw)
+    mat = rng.integers(0, 256, size=(rows, k), dtype=np.uint8)
+    x = _i32(dev, batch, k, nw, seed=nw)
+    before = W.GF_WORDS.launches
+    assert torch.equal(W.gf_matmul_words(mat, x),
+                       W.gf_matmul_words_plain(mat, x))
+    assert W.GF_WORDS.launches == before + 1
+
+
+@pytest.mark.parametrize("k,rows", [(8, 1), (8, 3), (8, 9), (8, 24),
+                                    (2, 5), (5, 2), (48, 8)])
+@pytest.mark.parametrize("batch,nw", [(1, 1), (2, 127), (1, 389),
+                                      (3, 4096)])
+def test_gf_planes_edge_shapes(dev, k, rows, batch, nw):
+    """m-tiles beyond the register tile, K not a multiple of 32, odd
+    word counts (bytewise plane loads) and batch 1; planes of any int8
+    value (the product reads bit 0)."""
+    rng = np.random.default_rng(k * rows + nw)
+    mat = rng.integers(0, 256, size=(rows, k), dtype=np.uint8)
+    planes = torch.from_numpy(rng.integers(-128, 128, size=(batch, 32 * k,
+                                                             nw),
+                                           dtype=np.int8)).to(dev)
+    before = W.GF_PLANES.launches
+    assert torch.equal(W.gf_matmul_planes(mat, planes),
+                       W.gf_matmul_planes_plain(mat, planes))
+    assert W.GF_PLANES.launches == before + 1
+
+
 @pytest.mark.parametrize("k,m", [(2, 1), (8, 3), (20, 4), (128, 128)])
 @pytest.mark.parametrize("n", [4, 100, 4096, 4096 + 36])
 def test_gf_bytes_matches_plain(dev, k, m, n):

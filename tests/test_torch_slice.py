@@ -230,3 +230,28 @@ def test_every_kernel_is_registered_with_its_source():
         assert (REPO / path).exists() and int(line) > 0
     sources = {p.name for p in build._sources()}
     assert sources == {Path(k.source).name for k in build.KERNELS.values()}
+
+
+def test_ptxas_report_names_each_kernel_variant(tmp_path, monkeypatch):
+    """The build keeps each source's nvcc log; the report gives one line
+    per kernel variant with its registers and spills, template
+    arguments demangled."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__ec72a2b5"
+        "_12_gf_planes_cu_214b348716gf_planes_kernelILi9ELb1EEEvPKaPjPK5uint2"
+        "iiixxx' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN45_GLOBAL__N__\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_Z15gf_bytes_kernelPK5uint4' for 'sm_90a'\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 77 registers\n")
+    (tmp_path / "gf_planes.log").write_text(log)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    assert build.ptxas_report("gf_planes") == [
+        "gf_planes_kernel<9, 1>: Used 168 registers, used 1 barriers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "_Z15gf_bytes_kernelPK5uint4: Used 77 registers; "
+        "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"]
+    assert build.ptxas_report("gf_words") == []
