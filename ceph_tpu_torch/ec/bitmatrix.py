@@ -169,17 +169,29 @@ def _gf2_inv(a: np.ndarray) -> np.ndarray:
 
 # -- K10: the GF(2) packet product ----------------------------------------
 
-def column_masks(mat: np.ndarray) -> np.ndarray:
-    """[R, N] 0/1 selector -> [ceil(R/32), N] uint32 column bitmasks:
-    bit t of entry (tile, c) is ``mat[32 tile + t, c]``."""
+_CHUNK = 48         # input packets the kernel stages per pass
+
+
+def xor_schedule(mat: np.ndarray, chunk: int = _CHUNK) -> np.ndarray:
+    """The ``gf2_packets`` kernel's XOR schedule of a 0/1 selector
+    ``[R, N]``, as one int32 array: ``ceil(N / chunk) * R + 1`` CSR
+    offsets, entry ``pass * R + r`` starting row r's list for the pass
+    over input packets ``[pass * chunk, (pass + 1) * chunk)``; then the
+    lists, each input packet as its index within its pass
+    (``c - pass * chunk``).
+
+    Jerasure's ``jerasure_dumb_bitmatrix_to_schedule``: one entry per
+    one of the matrix, in column order; a row with one entry is a
+    copy."""
     sel = np.asarray(mat) & 1
     rows, n = sel.shape
-    tiles = -(-rows // 32)
-    padded = np.zeros((tiles * 32, n), dtype=np.uint64)
-    padded[:rows] = sel
-    weights = np.left_shift(np.uint64(1), np.arange(32, dtype=np.uint64))
-    masks = (padded.reshape(tiles, 32, n) * weights[None, :, None]).sum(1)
-    return masks.astype(np.uint32)
+    offsets, entries = [0], []
+    for c0 in range(0, n, chunk):
+        for r in range(rows):
+            cols = np.flatnonzero(sel[r, c0:c0 + chunk])
+            entries.extend(cols.tolist())
+            offsets.append(len(entries))
+    return np.asarray(offsets + entries, dtype=np.int32)
 
 
 def gf2_packets_plain(mat: np.ndarray, words: torch.Tensor) -> torch.Tensor:
@@ -199,7 +211,8 @@ def gf2_packets(mat: np.ndarray, words: torch.Tensor,
                 cache: dict | None = None) -> torch.Tensor:
     """GF(2) selector ``[R, N]`` 0/1 times packets ``[..., N, pw]``
     uint8 → ``[..., R, pw]`` uint8 (K10), un-fenced.  ``cache`` holds
-    the selector's device masks across calls."""
+    the selector's device schedule (:func:`xor_schedule`) across
+    calls."""
     mat = np.ascontiguousarray(np.asarray(mat) & 1, dtype=np.int8)
     rows, n = mat.shape
     if words.dtype != torch.uint8 or words.dim() < 2 \
@@ -216,16 +229,17 @@ def gf2_packets(mat: np.ndarray, words: torch.Tensor,
     if pad or not x.is_contiguous() or x.data_ptr() % _WORD:
         x = torch.nn.functional.pad(x, (0, pad)).contiguous()
     bsz, _, pwp = x.shape
-    if bsz * pwp * rows == 0:
+    if bsz * pwp * rows * n == 0:
         return torch.zeros(*lead, rows, pw, dtype=torch.uint8,
                            device=words.device)
-    masks = build.device_table(
-        {} if cache is None else cache, ("masks", mat.shape, mat.tobytes()),
-        lambda: column_masks(mat), words.device)
+    sched = build.device_table(
+        {} if cache is None else cache, ("schedule", mat.shape,
+                                         mat.tobytes()),
+        lambda: xor_schedule(mat), words.device)
     out = torch.empty(bsz, rows, pwp, dtype=torch.uint8, device=words.device)
     rc = build.library().ctt_gf2_packets(
-        x.data_ptr(), out.data_ptr(), masks.data_ptr(), bsz, rows, n,
-        pwp // _WORD, build.stream_ptr(words.device))
+        x.data_ptr(), out.data_ptr(), sched.data_ptr(), sched.numel(), bsz,
+        rows, n, min(n, _CHUNK), pwp // _WORD, build.stream_ptr(words.device))
     build.check(rc, "gf2_packets")
     GF2_PACKETS.count()
     if pad:
@@ -264,7 +278,7 @@ class BitMatrixECEngine:
         # erasure tuple → (inverse matrix, survivor chunk ids)
         self._inverses: dict[tuple[int, ...],
                              tuple[np.ndarray, list[int]]] = {}
-        self._masks: dict = {}          # selector masks on the device
+        self._schedules: dict = {}      # XOR schedules on the device
 
     @staticmethod
     def _apply_np(mat: np.ndarray, words: np.ndarray) -> np.ndarray:
@@ -280,7 +294,8 @@ class BitMatrixECEngine:
         if (not device and isinstance(words, np.ndarray)
                 and words.size < self.HOST_THRESHOLD):
             return self._apply_np(mat, words)
-        out = gf2_packets(mat, to_device(words, self.device), self._masks)
+        out = gf2_packets(mat, to_device(words, self.device),
+                          self._schedules)
         return out if device else out.cpu().numpy()
 
     def _to_words(self, data):

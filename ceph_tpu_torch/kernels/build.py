@@ -46,13 +46,16 @@ _SIGNATURES = {
     # planes, out, B fragments, batch, k, rows, rows per block, nw,
     # stream
     "ctt_gf_planes": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
-    # data, seeds, out, nrows, granules per row, splits, shift_tab,
-    # tail_ops, seed_op, stream
-    "ctt_crc32c_batch": [_P, _P, _P, _I, _L, _I, _P, _P, _P, _P],
+    # set a, set b, rows of a, rows, seeds, out, granules per row, tiles
+    # per segment, segments per row, tables, segment ops, seed op,
+    # combine words, grid, stream
+    "ctt_crc32c_batch": [_P, _P, _I, _I, _P, _P, _L, _I, _I, _P, _P, _P,
+                         _P, _I, _P],
     # in, out, tables, batch, k, rows, rows per block, 16 B segments, stream
     "ctt_gf_bytes": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
-    # in, out, masks, batch, rows, n, packet words, stream
-    "ctt_gf2_packets": [_P, _P, _P, _I, _I, _I, _L, _P],
+    # in, out, schedule, schedule length, batch, rows, n, packets per
+    # pass, packet words, stream
+    "ctt_gf2_packets": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
 }
 
 
@@ -107,8 +110,9 @@ def _digest(paths: list[Path]) -> str:
 
 
 def _short_name(mangled: str) -> str:
-    """``<name>_kernel<args>`` from a mangled template kernel name (each
-    identifier is prefixed by its length), else the name unchanged."""
+    """``<name>_kernel<args>`` from a mangled template kernel name, or
+    ``<name>_kernel`` from a plain one in a namespace (each identifier
+    is prefixed by its length), else the name unchanged."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):        # the length may follow a hash
             name = mangled[m.end():m.end() + int(m.group()[i:])]
@@ -116,6 +120,8 @@ def _short_name(mangled: str) -> str:
             if name.endswith("_kernel") and rest.startswith("I"):
                 args = re.findall(r"L[a-z](\d+)E", rest.split("EEv")[0])
                 return f"{name}<{', '.join(args)}>"
+            if name.endswith("_kernel") and rest.startswith("E"):
+                return name
     return mangled
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..scrub.crc32c import crc32c_rows
+from ..scrub.crc32c import crc32c_row_sets
 from ..utils.device import resolve_device
 from .gf import gf_bitmatrix
 from .gf_bytes import gf_matmul_gather, gf_matmul_tables  # noqa: F401
@@ -142,8 +142,9 @@ class GFEncodeDigest:
     ``[B, k+m]`` int32 shard digests holding uint32 bits) out, both on
     the device and un-fenced: the engine's flight queue decides when
     to read them.  On the card: one ``gf_words`` launch for the parity
-    and two ``crc32c_batch`` launches, over the data rows and over the
-    parity rows, so the shards are never copied into one buffer."""
+    and one ``crc32c_batch`` launch over two row sets, the data rows
+    and the parity rows where they lie, so the shards are never copied
+    into one buffer."""
 
     def __init__(self, coding: np.ndarray, device=None):
         self.coding = np.asarray(coding, dtype=np.uint8)
@@ -160,8 +161,8 @@ class GFEncodeDigest:
         arr = arr.contiguous()
         bsz, k, length = arr.shape
         parity = gf_matmul_bytes(self.coding, arr, self._tables)
-        crc_d = crc32c_rows(arr.reshape(bsz * k, length))
-        crc_p = crc32c_rows(parity.reshape(bsz * self.m, length))
-        crcs = torch.cat([crc_d.view(bsz, k),
-                          crc_p.view(bsz, self.m)], dim=1)
+        crc = crc32c_row_sets(arr.reshape(bsz * k, length),
+                              parity.reshape(bsz * self.m, length))
+        crcs = torch.cat([crc[:bsz * k].view(bsz, k),
+                          crc[bsz * k:].view(bsz, self.m)], dim=1)
         return parity, crcs

@@ -245,8 +245,11 @@ CRC32C_BATCH = build.register(
     "ceph_tpu/scrub/crc32c_jax.py:275")
 
 _GRAN = 16                  # bytes per granule (one uint4 load)
-_THREADS = 256              # threads per block in the kernel
-_MAX_SPLITS = 8             # blocks per row at most
+_THREADS = 256              # threads per block, granules per tile
+_BLOCKS_PER_SM = 4          # resident blocks per SM (kernel launch bounds)
+_ITEM_TILES = 2             # a work item's fixed cost, in tiles of loads
+_MAX_SEGMENTS = 32          # segments of a row at most (combine mask)
+_TABLE_COPIES = 16          # copies of the kernel's tables on the card
 _PLAIN_CHUNK = 1 << 14      # bytes of L per plain matmul: counts <= 2^17
 
 
@@ -269,35 +272,97 @@ def _cols(dense: np.ndarray) -> np.ndarray:
     return (dense.astype(np.uint64) * w[:, None]).sum(0).astype(np.uint32)
 
 
+def _nibble_tables(cols: np.ndarray) -> np.ndarray:
+    """The linear map with uint32 columns ``cols`` (one per input bit)
+    as [len(cols) / 4, 16] nibble tables: table i maps nibble v of the
+    input to the image of ``v << 4i``."""
+    cols = np.asarray(cols, dtype=np.uint32).reshape(-1, 4)
+    v = np.arange(16, dtype=np.uint32)
+    tabs = np.zeros((cols.shape[0], 16), dtype=np.uint32)
+    for b in range(4):
+        tabs ^= np.where(((v >> b) & 1)[None, :] == 1, cols[:, b:b + 1],
+                         np.uint32(0))
+    return tabs
+
+
+def _raw_crc(block: bytes) -> int:
+    """Raw CRC-32C register of ``block`` from a zero register (no
+    conditioning): linear in the bytes."""
+    c = 0
+    for byte in block:
+        c = (c >> 8) ^ _TABLE[(c ^ byte) & 0xFF]
+    return c
+
+
+def _op_tables(n: int) -> np.ndarray:
+    """A^n as [8, 16] nibble tables."""
+    return _nibble_tables(_cols(_power_dense(n)))
+
+
 @functools.lru_cache(maxsize=1)
-def _tail_ops() -> np.ndarray:
-    """[256 * _MAX_SPLITS, 32] uint32: columns of A^(16 e)."""
-    a16 = _power_dense(_GRAN)
-    ops = np.empty((_THREADS * _MAX_SPLITS, 32), dtype=np.uint32)
-    cur = np.eye(32, dtype=np.int64)
-    for e in range(ops.shape[0]):
-        ops[e] = _cols(cur)
-        cur = (a16 @ cur) % 2
-    return ops
+def _kernel_tables() -> np.ndarray:
+    """The kernel's constant tables, [5760] uint32: the raw CRC of one
+    16-byte granule as 32 nibble tables (one per nibble of the
+    granule, little-endian); A^(16 * 256), one tile ahead; the lane
+    operators A^(16 (31 - l)), interleaved [table, nibble, lane] so
+    that lane l reads bank l; the warp operators
+    A^(16 * 32 * (7 - w)), w = 0..7."""
+    data_cols = [_raw_crc(bytes(p // 8) + bytes([1 << (p % 8)])
+                          + bytes(15 - p // 8)) for p in range(128)]
+    lanes = np.stack([_op_tables(_GRAN * (31 - lane))
+                      for lane in range(32)], axis=-1)
+    warps = [_op_tables(_GRAN * 32 * (7 - w)).ravel() for w in range(8)]
+    return np.concatenate([_nibble_tables(data_cols).ravel(),
+                           _op_tables(_GRAN * _THREADS).ravel(),
+                           lanes.ravel()] + warps)
 
 
 @functools.lru_cache(maxsize=None)
-def _shift_tables(splits: int) -> np.ndarray:
-    """[4, 256] uint32 byte tables of A^(16 * 256 * splits): table q
-    maps byte v to the operator applied to ``v << 8q``."""
-    cols = _cols(_power_dense(_GRAN * _THREADS * splits))
-    v = np.arange(256, dtype=np.uint32)
-    tabs = np.zeros((4, 256), dtype=np.uint32)
-    for q in range(4):
-        for b in range(8):
-            tabs[q] ^= np.where((v >> b) & 1, cols[8 * q + b], 0
-                                ).astype(np.uint32)
-    return tabs
+def _segment_ops(tps: int, nseg: int) -> np.ndarray:
+    """[nseg, 128] uint32: entry j is A^(16 * 256 * tps * j) as nibble
+    tables, the move of a segment's CRC j segments ahead."""
+    step = _power_dense(_GRAN * _THREADS * tps)
+    cur = np.eye(32, dtype=np.int64)
+    out = np.empty((nseg, 128), dtype=np.uint32)
+    for j in range(nseg):
+        out[j] = _nibble_tables(_cols(cur)).ravel()
+        cur = (step @ cur) % 2
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def _seed_op(length: int) -> np.ndarray:
-    return _cols(_power_dense(length))
+    """A^length as [128] uint32 nibble tables (the seed term)."""
+    return _op_tables(length).ravel()
+
+
+@functools.lru_cache(maxsize=4096)
+def crc32c_geometry(nrows: int, ngran: int, sms: int) -> tuple:
+    """(tiles per segment, segments per row, grid) of a launch over
+    ``nrows`` rows of ``ngran`` 16-byte granules on a card of ``sms``
+    SMs.
+
+    A work item is one segment of one row; the grid (at most 4 blocks
+    per SM) takes items in turn.  The split minimises the busiest SM's
+    items x (tiles per segment + a fixed cost of ``_ITEM_TILES``): the
+    items of one SM share its shared-memory pipe, and each carries the
+    fixed cost of its operators and its combine.  A row has at most 32
+    segments (one bit each in the combine); ties go to fewer."""
+    ntiles = -(-ngran // _THREADS)
+    best = None
+    for nseg in range(1, min(ntiles, _MAX_SEGMENTS) + 1):
+        tps = -(-ntiles // nseg)
+        nseg = -(-ntiles // tps)
+        cost = -(-nrows * nseg // sms) * (tps + _ITEM_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, tps, nseg)
+    _, tps, nseg = best
+    return tps, nseg, min(nrows * nseg, _BLOCKS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # device copies of the operator tables, per (table, device)
@@ -344,42 +409,109 @@ def crc32c_rows_plain(data: torch.Tensor,
     return _u32_to_i32((out_bits << bit32).sum(-1))
 
 
-def _launch_crc32c(data: torch.Tensor, seeds: torch.Tensor,
+def _launch_crc32c(sets: list, seeds: torch.Tensor,
                    length: int) -> torch.Tensor:
-    """Launch the kernel on ``[n, Lp]`` rows (Lp % 16 == 0, 16-byte
-    aligned, zero-padded at the front from the true ``length``)."""
-    if not data.is_cuda or not seeds.is_cuda:
-        raise ValueError("crc32c_batch kernel wants CUDA tensors")
-    if data.dtype != torch.uint8 or data.dim() != 2:
-        raise ValueError(f"want [n, L] uint8, got {data.dtype} "
-                         f"{tuple(data.shape)}")
-    if seeds.dtype != torch.int32 or seeds.shape != (data.shape[0],):
-        raise ValueError("want [n] int32 seeds")
-    n, lp = data.shape
-    if (not data.is_contiguous() or not seeds.is_contiguous()
-            or lp % _GRAN or data.data_ptr() % _GRAN):
-        raise ValueError("crc32c_batch kernel wants contiguous 16-byte "
-                         "aligned rows of a multiple of 16 bytes")
-    dev = data.device
-    ngran = lp // _GRAN
-    splits = 1
-    while (splits < _MAX_SPLITS and n * splits < 264
-           and _THREADS * splits * 2 <= ngran):
-        splits *= 2
-    shift = build.device_table(_DEVICE_TABLES, ("shift", splits),
-                               lambda: _shift_tables(splits), dev)
-    tail = build.device_table(_DEVICE_TABLES, ("tail",), _tail_ops, dev)
+    """Launch the kernel on one or two row sets ``[n_i, Lp]`` (Lp % 16
+    == 0, 16-byte aligned, zero-padded at the front from the true
+    ``length``) → ``[sum n_i]`` int32, the sets' rows in order."""
+    for data in sets:
+        if not data.is_cuda or data.device != sets[0].device:
+            raise ValueError("crc32c_batch kernel wants CUDA tensors on "
+                             "one device")
+        if data.dtype != torch.uint8 or data.dim() != 2 \
+                or data.shape[1] != sets[0].shape[1]:
+            raise ValueError(f"want [n, L] uint8 rows of one length, got "
+                             f"{data.dtype} {tuple(data.shape)}")
+        if (not data.is_contiguous() or data.shape[1] % _GRAN
+                or data.data_ptr() % _GRAN):
+            raise ValueError("crc32c_batch kernel wants contiguous 16-byte "
+                             "aligned rows of a multiple of 16 bytes")
+    n = sum(d.shape[0] for d in sets)
+    if (not seeds.is_cuda or seeds.dtype != torch.int32
+            or seeds.shape != (n,) or not seeds.is_contiguous()):
+        raise ValueError("want [n] int32 seeds on the card")
+    dev = sets[0].device
+    ngran = sets[0].shape[1] // _GRAN
+    tps, nseg, grid = crc32c_geometry(n, ngran, _sm_count(dev.index or 0))
+    blob = build.device_table(
+        _DEVICE_TABLES, ("blob",),
+        lambda: np.tile(_kernel_tables(), _TABLE_COPIES), dev)
+    segs = build.device_table(_DEVICE_TABLES, ("segments", tps, nseg),
+                              lambda: _segment_ops(tps, nseg), dev)
     sop = build.device_table(_DEVICE_TABLES, ("seed", length),
                              lambda: _seed_op(length), dev)
-    out = torch.zeros(n, dtype=torch.int32, device=dev)
-    lib = build.library()
-    rc = lib.ctt_crc32c_batch(
-        data.data_ptr(), seeds.data_ptr(), out.data_ptr(), n, ngran,
-        splits, shift.data_ptr(), tail.data_ptr(), sop.data_ptr(),
-        build.stream_ptr(dev))
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    acc = _accumulators(dev, n) if nseg > 1 else out
+    second = sets[1] if len(sets) > 1 else sets[0]
+    rc = build.library().ctt_crc32c_batch(
+        sets[0].data_ptr(), second.data_ptr(), sets[0].shape[0], n,
+        seeds.data_ptr(), out.data_ptr(), ngran, tps, nseg,
+        blob.data_ptr(), segs.data_ptr(), sop.data_ptr(),
+        acc.data_ptr(), grid, build.stream_ptr(dev))
     build.check(rc, "crc32c_batch")
     CRC32C_BATCH.count()
     return out
+
+
+# per-row 64-bit combine words, per (device, stream): zeroed once and
+# left at zero by every launch (the segment that completes a row clears
+# its word), so launches on one stream, which run in order, share them
+_ACCUMULATORS: dict = {}
+
+
+def _accumulators(dev, n: int) -> torch.Tensor:
+    key = (str(dev), build.stream_ptr(dev))
+    acc = _ACCUMULATORS.get(key)
+    if acc is None or acc.numel() < n:
+        acc = _ACCUMULATORS[key] = torch.zeros(max(n, 1024),
+                                               dtype=torch.int64, device=dev)
+    return acc
+
+
+def _kernel_rows(data: torch.Tensor, length: int) -> torch.Tensor:
+    """``data`` as rows the kernel takes: front-padded with zeros to a
+    multiple of 16 bytes, contiguous and 16-byte aligned."""
+    pad = -length % _GRAN
+    if pad or not data.is_contiguous() or data.data_ptr() % _GRAN:
+        padded = torch.zeros(data.shape[0], length + pad, dtype=torch.uint8,
+                             device=data.device)
+        padded[:, pad:] = data
+        data = padded
+    return data
+
+
+def crc32c_row_sets(first: torch.Tensor, second: torch.Tensor,
+                    seeds: torch.Tensor | None = None) -> torch.Tensor:
+    """CRC-32C of every row of two ``[n_a, L]`` and ``[n_b, L]`` uint8
+    tensors of the same length ``L`` → ``[n_a + n_b]`` int32 (uint32
+    bits), ``first``'s rows then ``second``'s, chained from ``seeds``
+    (``[n_a + n_b]``, zeros by default); un-fenced.
+
+    On the card it is one ``crc32c_batch`` launch over both sets, read
+    where they lie (the write lane's data and parity rows, never copied
+    into one buffer).  CPU tensors take the plain version."""
+    for t in (first, second):
+        if t.dim() != 2 or t.dtype != torch.uint8:
+            raise ValueError(f"crc32c_row_sets wants [n, L] uint8, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if first.shape[1] != second.shape[1] or first.device != second.device:
+        raise ValueError("crc32c_row_sets wants rows of one length on one "
+                         "device")
+    na, length = first.shape
+    n = na + second.shape[0]
+    if seeds is None:
+        seeds = torch.zeros(n, dtype=torch.int32, device=first.device)
+    if first.device.type == "cpu":
+        return torch.cat([crc32c_rows_plain(first, seeds[:na]),
+                          crc32c_rows_plain(second, seeds[na:])])
+    if not first.is_cuda:
+        raise ValueError(f"crc32c_row_sets: unsupported device "
+                         f"{first.device}")
+    if length == 0 or n == 0:
+        return seeds.clone()
+    return _launch_crc32c([_kernel_rows(first, length),
+                           _kernel_rows(second, length)],
+                          seeds.contiguous(), length)
 
 
 def crc32c_rows(data: torch.Tensor,
@@ -387,7 +519,14 @@ def crc32c_rows(data: torch.Tensor,
     """CRC-32C of every row of a ``[n, L]`` uint8 tensor, chained from
     ``seeds`` (``[n]`` int32 holding uint32 bits) → ``[n]`` int32 on
     the same device, un-fenced.  A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel."""
+    a CUDA tensor launches the kernel.
+
+    The launch geometry (:func:`crc32c_geometry`) replaces a fixed
+    split: rows are cut into equal segments of whole 4 KiB tiles
+    (front-padded with virtual zeros), so that the (row, segment) items
+    spread evenly over the SMs.  The segments of a row combine in the
+    kernel (one 64-bit atomic each), so the output needs no zeroing
+    launch."""
     if data.dim() != 2 or data.dtype != torch.uint8:
         raise ValueError(f"crc32c_rows wants [n, L] uint8, got "
                          f"{data.dtype} {tuple(data.shape)}")
@@ -398,15 +537,10 @@ def crc32c_rows(data: torch.Tensor,
         return crc32c_rows_plain(data, seeds)
     if not data.is_cuda:
         raise ValueError(f"crc32c_rows: unsupported device {data.device}")
-    if length == 0:
+    if length == 0 or n == 0:
         return seeds.clone()
-    pad = -length % _GRAN
-    if pad or not data.is_contiguous() or data.data_ptr() % _GRAN:
-        padded = torch.zeros(n, length + pad, dtype=torch.uint8,
-                             device=data.device)
-        padded[:, pad:] = data
-        data = padded
-    return _launch_crc32c(data, seeds.contiguous(), length)
+    return _launch_crc32c([_kernel_rows(data, length)], seeds.contiguous(),
+                          length)
 
 
 def crc32c_batch(data, seeds=None, device=None) -> np.ndarray:

@@ -9,12 +9,17 @@ result.  Phases (any failure exits non-zero; each prints its wall
 time):
 
 1. build the six CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
-   and print the ``-Xptxas -v`` registers and spills of ``gf_words`` and
-   ``gf_planes``;
+   and print the ``-Xptxas -v`` registers and spills of ``gf_words``,
+   ``gf_planes``, ``crc32c_batch`` and ``gf2_packets``;
 2. hold each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge shapes (odd lengths; for
    ``gf_words`` and ``gf_planes`` rows beyond their register tiles, word
-   counts off their vector width, batch 1), byte for byte;
+   counts off their vector width, batch 1; for ``crc32c_batch`` lengths
+   1 to 65539, 1 to 1024 rows, unaligned views and the two-row-set
+   entry), byte for byte; and at the write lane's other digest launches
+   ([6, 524288] parity rows, the fused [16 + 6, 524288] launch,
+   [512, 8192] rows of 64 KiB objects) and the liberation (0, 1) decode
+   of ``gf2_packets``;
 3. drive the main path at full width, launch counts set to 0 first and
    read after each phase:
    - ``ec_bench``: encode and decode sweep (EC pool k=8 m=3
@@ -42,8 +47,12 @@ time):
    corruptions made;
 5. time every kernel (CUDA graphs of 20 launches, replayed over 5
    windows of at least 50 ms and 200 launches; median and spread) and
-   its plain version at the main path's shape, and gf_words at the lrc
-   plugin's per-stripe layer shapes; print one ``kernels`` JSON line,
+   its plain version at the main path's shape, ``crc32c_batch`` also
+   cold (graphs cycling through >= 96 MiB of distinct inputs, twice the
+   L2) at the write lane's launch shapes, ``gf2_packets`` also at the
+   decode shape, and gf_words at the lrc plugin's per-stripe layer
+   shapes; print one ``kernels`` JSON line (``crc32c_batch``'s ``ms`` is
+   its cold time, ``ms_warm`` the graph time of one held input),
    then the card's name and power limit, and last
    ``{"ok": true, "device": ...}``.
 """
@@ -199,6 +208,30 @@ def time_kernel(torch, fn, windows: int = 5, min_ms: float = 50.0,
     return per[len(per) // 2], per[0], per[-1], replays * per_graph
 
 
+def cold_inputs(torch, shape, dev, seed: int, total: int = 96 << 20):
+    """Distinct random uint8 inputs of ``shape``, made on the card, at
+    least 8 and together at least ``total`` bytes (twice the 50 MB L2):
+    a graph that cycles through them finds each input cold."""
+    count = max(8, math.ceil(total / math.prod(shape)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                          generator=gen) for _ in range(count)]
+
+
+def time_cold(torch, fn, inputs):
+    """``time_kernel`` of ``fn(x)`` over a graph that launches it once on
+    each of ``inputs`` in turn (every reuse is ``len(inputs)`` launches
+    apart, so no input is left in L2)."""
+    turn = [0]
+
+    def launch():
+        x = inputs[turn[0] % len(inputs)]
+        turn[0] += 1
+        return fn(x)
+    return time_kernel(torch, launch, per_graph=len(inputs))
+
+
 def max_abs_err(torch, a, b) -> int:
     if a.shape != b.shape:
         fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -259,7 +292,7 @@ def main():
     # -- 1. build ---------------------------------------------------------
     build.build(verbose=True)
     build.library()
-    for stem in ("gf_words", "gf_planes"):
+    for stem in ("gf_words", "gf_planes", "crc32c_batch", "gf2_packets"):
         for line in build.ptxas_report(stem):
             log(f"[ptxas] {stem}.cu {line}")
     phase_done("build")
@@ -345,6 +378,20 @@ def main():
         if not torch.equal(C.crc32c_rows(rows, s),
                            C.crc32c_rows_plain(rows, s)):
             fail(f"crc32c_batch disagrees at L={n}")
+    # crc32c_batch: lengths around the 16-byte granule, 1 to 1024 rows,
+    # a view that is not 16-byte aligned, the two-row-set entry
+    for nrows, n in ((1, 1), (7, 15), (1024, 16), (3, 17), (1024, 33),
+                     (2, 4097), (1, 65536 + 3)):
+        rows = rand_u8(nrows, n + 1)[:, 1:]
+        if not torch.equal(C.crc32c_rows(rows),
+                           C.crc32c_rows_plain(rows.contiguous())):
+            fail(f"crc32c_batch disagrees at [{nrows}, {n}]")
+        if not torch.equal(C.crc32c_row_sets(rows, rows[:1]),
+                           C.crc32c_rows_plain(torch.cat([rows, rows[:1]]))):
+            fail(f"crc32c_batch two row sets disagree at [{nrows}, {n}]")
+    log("[check] crc32c_batch edge shapes (L 1/15/16/17/33/4097/65539, "
+        "rows 1-1024, unaligned views, two row sets) equal the plain "
+        "version")
     x = rand_u8(3, K, 2048)
     rp = W.ResidentPlanes(x)
     if not torch.equal(rp.multiply(dm), W.gf_matmul_bytes_plain(dm, x)):
@@ -381,6 +428,40 @@ def main():
             if not torch.equal(BM.gf2_packets(mat, x),
                                BM.gf2_packets_plain(mat, x)):
                 fail(f"gf2_packets disagrees at pw={pw}")
+    # the write lane's other crc32c_batch launches (parity rows of a 4 MiB
+    # flush; GFEncodeDigest's one launch over data and parity rows; data
+    # rows of a 64 KiB-object flush) and the liberation (0, 1) decode
+    par_rows = rand_u8(2 * M, big)
+    small_rows = rand_u8(N_OBJ * K, OBJ_SMALL // K)
+    seeds22 = torch.cat([seeds, seeds[:2 * M]])
+    extra = {
+        "crc32c_batch parity": (
+            par_rows, lambda x: C.crc32c_rows(x),
+            lambda x: C.crc32c_rows_plain(x)),
+        "crc32c_batch fused": (
+            par_rows,
+            lambda x: C.crc32c_row_sets(shapes["crc32c_batch"], x, seeds22),
+            lambda x: torch.cat([
+                C.crc32c_rows_plain(shapes["crc32c_batch"], seeds),
+                C.crc32c_rows_plain(x, seeds22[2 * K:])])),
+        "crc32c_batch 64KiB": (
+            small_rows, lambda x: C.crc32c_rows(x),
+            lambda x: C.crc32c_rows_plain(x)),
+        "gf2_packets decode": (
+            shapes["gf2_packets"],
+            lambda x: BM.gf2_packets(lib_inv, x, tables),
+            lambda x: BM.gf2_packets_plain(lib_inv, x)),
+    }
+    for label, (x, kern, plain) in extra.items():
+        got, want = kern(x), plain(x)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        rows_in = (list(shapes["crc32c_batch"].shape) + ["+"] + list(x.shape)
+                   if label.endswith("fused") else list(x.shape))
+        log(f"[check] {label} {rows_in} -> {list(got.shape)} "
+            f"max_abs_err {err}")
+        if err:
+            fail(f"{label} disagrees with its plain version")
     torch.cuda.synchronize()
     phase_done("kernel checks")
 
@@ -651,9 +732,40 @@ def main():
                         2 * r2 * 8 * g2.numel()),
     }
     log(f"[clocks] before timing: {clocks()}")
+    # crc32c_batch cold (graphs cycling through >= 96 MiB of distinct
+    # inputs) at the write lane's launch shapes; the kernel table takes
+    # the cold time of the main shape, the warm time is printed beside it
+    cold = {}
+    n_data, n_par = shapes["crc32c_batch"].shape[0], par_rows.shape[0]
+    for label, shape, fn in (
+            ("data rows of a 4 MiB flush", tuple(gc.shape),
+             lambda x: C.crc32c_rows(x, seeds)),
+            ("parity rows of a 4 MiB flush", tuple(par_rows.shape),
+             lambda x: C.crc32c_rows(x)),
+            ("fused data + parity rows of a 4 MiB flush",
+             (n_data + n_par, gc.shape[1]),
+             lambda x: C.crc32c_row_sets(x[:n_data], x[n_data:])),
+            ("data rows of a 64 KiB-object flush", tuple(small_rows.shape),
+             lambda x: C.crc32c_rows(x)),
+            ("fused data + parity rows of a 64 KiB-object flush",
+             (N_OBJ * (K + M), small_rows.shape[1]),
+             lambda x: C.crc32c_row_sets(x[:N_OBJ * K], x[N_OBJ * K:]))):
+        inputs = cold_inputs(torch, shape, dev, seed=len(cold))
+        ms, lo, hi, n_win = time_cold(torch, fn, inputs)
+        b_ms, b_by = bound(math.prod(shape) + 8 * shape[0],
+                           2 * 32 * 8 * math.prod(shape))
+        cold[label] = (ms, lo, hi)
+        log(f"[time] crc32c_batch cold {list(shape)} ({label}): {ms:.4f} ms "
+            f"median of 5 windows of {n_win} launches over "
+            f"{len(inputs)} distinct inputs (spread {lo:.4f}-{hi:.4f} ms; "
+            f"bound {b_ms:.4f} ms by {b_by}) on {card}")
+        del inputs
     entries = []
     for name, (kern, plain) in runs.items():
         ms, lo, hi, n_win = time_kernel(torch, kern)
+        warm, warm_lo, warm_hi = ms, lo, hi
+        if name == "crc32c_batch":
+            ms, lo, hi = cold["data rows of a 4 MiB flush"]
         plain_ms = time_plain(torch, plain)
         b_ms, b_by = bound(*work[name])
         k = build.KERNELS[name]
@@ -665,10 +777,19 @@ def main():
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": list(shape), "ms_min": lo, "ms_max": hi,
-            "window_launches": n_win})
-        log(f"[time] {name} {list(shape)}: {ms:.4f} ms median of 5 windows "
-            f"of {n_win} launches (spread {lo:.4f}-{hi:.4f} ms; plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}) on {card}")
+            "window_launches": n_win, "ms_warm": warm})
+        log(f"[time] {name} {list(shape)}: {warm:.4f} ms median of 5 windows "
+            f"of {n_win} launches (spread {warm_lo:.4f}-{warm_hi:.4f} ms; plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}) on {card}"
+            + (f"; warm, against {ms:.4f} ms cold" if ms != warm else ""))
+    # gf2_packets at the liberation (0, 1) decode shape: [64, 42, 24968]
+    # in and out (64 MiB each way: no input stays in L2)
+    ms, lo, hi, n_win = time_kernel(
+        torch, lambda: BM.gf2_packets(lib_inv, g2, tables))
+    b_ms, b_by = bound(2 * g2.numel(), 2 * lib_inv.shape[0] * 8 * g2.numel())
+    log(f"[time] gf2_packets decode {list(g2.shape)} -> {list(g2.shape)}: "
+        f"{ms:.4f} ms median of 5 windows of {n_win} launches (spread "
+        f"{lo:.4f}-{hi:.4f} ms; bound {b_ms:.4f} ms by {b_by}) on {card}")
     # the lrc plugin's per-stripe layer launches (2694 of gf_words' in
     # the plugin sweep): kernel alone in graph windows, and the wrapper's
     # host wall per call as the plugin makes it

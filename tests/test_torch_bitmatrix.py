@@ -130,11 +130,55 @@ def test_packet_product_odd_packets(pw):
         eng.encode(data[:, 1:])
 
 
-def test_column_masks_hold_every_bit():
+def _run_schedule(sched, mat, words, chunk):
+    """Apply the gf2_packets kernel's XOR schedule in numpy, pass by
+    pass as the kernel does: ``words`` [B, N, pw] -> [B, R, pw]."""
+    rows, n = mat.shape
+    npass = -(-n // chunk)
+    offs, ents = sched[:npass * rows + 1], sched[npass * rows + 1:]
+    out = np.zeros((words.shape[0], rows, words.shape[2]), np.uint8)
+    for p in range(npass):
+        staged = words[:, p * chunk:(p + 1) * chunk]
+        for r in range(rows):
+            for e in ents[offs[p * rows + r]:offs[p * rows + r + 1]]:
+                assert 0 <= e < chunk
+                out[:, r] ^= staged[:, e]
+    return out
+
+
+@pytest.mark.parametrize("technique,k,w", [("liberation", 6, 7),
+                                           ("liber8tion", 6, None),
+                                           ("blaum_roth", 6, 6)])
+@pytest.mark.parametrize("which", ["encode", (0, 1), (0, 6)])
+def test_xor_schedule_equals_the_selector(technique, k, w, which):
+    """The kernel's XOR schedule, at encode and at decode, applied in
+    numpy equals the plain K10 and ceph_tpu's ``_apply_np``: one entry
+    per one of the matrix, identity rows as copies."""
+    bits, w = B.build_bitmatrix(technique, k, w)
+    mat = bits if which == "encode" else \
+        B.BitMatrixECEngine(bits, k, w, device="cpu")._inverse_for(which)[0]
+    sched = B.xor_schedule(mat)
+    rows, n = mat.shape
+    assert len(sched) == rows + 1 + int((mat & 1).sum())
+    rng = np.random.default_rng(rows * n)
+    words = rng.integers(0, 256, size=(2, n, 24), dtype=np.uint8)
+    got = _run_schedule(sched, mat, words, min(n, B._CHUNK))
+    assert np.array_equal(
+        got, B.gf2_packets_plain(mat, torch.from_numpy(words)).numpy())
+    assert np.array_equal(got, J.BitMatrixECEngine._apply_np(mat, words))
+    if which != "encode":
+        copies = [r for r in range(rows)
+                  if sched[r + 1] - sched[r] == 1]
+        assert len(copies) >= (k - 2) * w
+
+
+def test_xor_schedule_runs_long_selectors_in_passes():
+    """More than 32 rows and more input packets than one pass stages:
+    each later pass XORs into the rows already written."""
     rng = np.random.default_rng(9)
-    mat = (rng.random((70, 45)) < 0.4).astype(np.int8)
-    masks = B.column_masks(mat)
-    assert masks.shape == (3, 45) and masks.dtype == np.uint32
-    for r in range(70):
-        assert np.array_equal((masks[r // 32] >> np.uint32(r % 32)) & 1,
-                              mat[r])
+    mat = (rng.random((70, 130)) < 0.4).astype(np.int8)
+    sched = B.xor_schedule(mat)
+    assert len(sched) == 3 * 70 + 1 + int(mat.sum())
+    words = rng.integers(0, 256, size=(1, 130, 8), dtype=np.uint8)
+    assert np.array_equal(_run_schedule(sched, mat, words, B._CHUNK),
+                          J.BitMatrixECEngine._apply_np(mat, words))

@@ -67,45 +67,114 @@ def test_combine_and_shift_inverse():
     assert C.crc32c_unshift(C.crc32c_shift(0x12345678, 77), 77) == 0x12345678
 
 
-@pytest.mark.parametrize("length,splits", [(16, 1), (100, 1), (4096, 1),
-                                           (12293, 2), (40000, 8)])
-def test_kernel_algorithm_in_numpy(length, splits):
-    """The crc32c_batch kernel's schedule (granules, stride shift,
-    tail operators, seed operator, front zero pad) replayed in
-    Python equals the scalar CRC."""
-    rng = np.random.default_rng(length)
-    data = rng.integers(0, 256, size=length, dtype=np.uint8)
-    seed = int(rng.integers(0, 2 ** 32))
-    row = np.concatenate([np.zeros(-length % 16, np.uint8), data])
-    tab = [np.asarray(C._TABLE, dtype=np.uint32)]
-    for _ in range(3):
-        prev = tab[-1]
-        tab.append((prev >> 8) ^ tab[0][prev & 0xFF])
-    sh = C._shift_tables(splits)
-    tail = C._tail_ops()
+def _replay_kernel(sets, seeds, length, sms):
+    """The crc32c_batch kernel's arithmetic replayed in numpy, thread by
+    thread: the wrapper's geometry for a card of ``sms`` SMs, the
+    virtual front pad, 16-byte granules folded through the nibble
+    tables, the tile shift, the lane and warp operators, the segment
+    operators and the seed operator; rows of the first set, then the
+    second."""
+    blob = C._kernel_tables()
+    assert blob.shape == (5760,)
+    data_t = blob[:512].reshape(32, 16)
+    shift = blob[512:640].reshape(8, 16)
+    lane_t = blob[640:4736].reshape(8, 16, 32)
+    warp_t = blob[4736:].reshape(8, 8, 16)
+    rows = [np.concatenate([np.zeros(-length % 16, np.uint8), r])
+            for rs in sets for r in rs]
+    ngran = len(rows[0]) // 16
+    tps, nseg, grid = C.crc32c_geometry(len(rows), ngran, sms)
+    assert grid == min(len(rows) * nseg, 4 * sms) and nseg <= 32
+    seg_ops = C._segment_ops(tps, nseg).reshape(nseg, 8, 16)
+    seed_op = C._seed_op(length).reshape(8, 16)
+    lane = np.arange(256)
 
-    def apply(cols, v):
-        out = 0
-        for b in range(32):
-            if v >> b & 1:
-                out ^= int(cols[b])
+    def apply(op, v):
+        v = np.asarray(v, dtype=np.uint32)
+        out = np.zeros_like(v)
+        for i in range(8):
+            out ^= op[i][(v >> np.uint32(4 * i)) & np.uint32(15)]
         return out
 
-    ngran, nvirt = len(row) // 16, 256 * splits
-    acc = 0
-    for v in range(min(nvirt, ngran)):
-        reg = 0
-        for g in range(v, ngran, nvirt):
-            words = row[16 * g:16 * g + 16].view("<u4")
-            reg = int(sh[0][reg & 0xFF] ^ sh[1][reg >> 8 & 0xFF]
-                      ^ sh[2][reg >> 16 & 0xFF] ^ sh[3][reg >> 24])
-            x = 0
-            for w in words:
-                x ^= int(w)
-                x = int(tab[3][x & 0xFF] ^ tab[2][x >> 8 & 0xFF]
-                        ^ tab[1][x >> 16 & 0xFF] ^ tab[0][x >> 24])
-            reg ^= x
-        if reg:
-            acc ^= apply(tail[(ngran % nvirt - 1 - v) % nvirt], reg)
-    got = apply(C._seed_op(length), seed ^ 0xFFFFFFFF) ^ acc ^ 0xFFFFFFFF
-    assert got == C.crc32c(data, seed)
+    pad = nseg * tps * 256 - ngran
+    assert 0 <= pad < tps * 256
+    got = []
+    for row, seed in zip(rows, seeds):
+        gran = row.view("<u4").reshape(ngran, 4)
+        crc = np.uint32(0)
+        for s in range(nseg):
+            reg = np.zeros(256, dtype=np.uint32)
+            for tl in range(max(s * tps, pad // 256), (s + 1) * tps):
+                g = tl * 256 + lane - pad
+                w = np.where((g >= 0)[:, None], gran[np.maximum(g, 0)], 0)
+                reg = apply(shift, reg)
+                for j in range(4):
+                    for i in range(8):
+                        reg ^= data_t[8 * j + i][(w[:, j] >> np.uint32(4 * i))
+                                                 & np.uint32(15)]
+            y = np.zeros(256, dtype=np.uint32)
+            for i in range(8):          # each lane's own operator
+                nib = (reg >> np.uint32(4 * i)) & np.uint32(15)
+                y ^= lane_t[i, nib, lane % 32]
+            x = np.uint32(0)
+            for w in range(8):          # warp sums, each warp's operator
+                x ^= apply(warp_t[w], np.bitwise_xor.reduce(
+                    y[32 * w:32 * w + 32]))
+            v = apply(seg_ops[nseg - 1 - s], x)
+            if s == 0:
+                v ^= apply(seed_op, np.uint32(seed) ^ np.uint32(0xFFFFFFFF)) \
+                    ^ np.uint32(0xFFFFFFFF)
+            crc ^= v
+        got.append(int(crc))
+    return got, nseg
+
+
+@pytest.mark.parametrize("length,sms", [
+    (1, 132), (15, 132), (16, 132), (17, 132), (100, 132), (4096, 132),
+    (12293, 2), (40000, 16), ((1 << 20) + 37, 132)])
+def test_kernel_algorithm_in_numpy(length, sms):
+    """The crc32c_batch kernel's schedule replayed in numpy equals the
+    scalar CRC, for one row (many segments at the long length)."""
+    rng = np.random.default_rng(length)
+    data = rng.integers(0, 256, size=(1, length), dtype=np.uint8)
+    seed = int(rng.integers(0, 2 ** 32))
+    got, nseg = _replay_kernel([data], [seed], length, sms)
+    assert got == [C.crc32c(data[0], seed)]
+    if length > 1 << 20:
+        assert nseg > 1
+
+
+@pytest.mark.parametrize("na,nb,length,sms", [
+    (3, 2, 5000, 132), (16, 6, 8192, 132), (2, 3, 70000, 1)])
+def test_kernel_two_row_sets_in_numpy(na, nb, length, sms):
+    """One launch over two row sets (the write lane's data and parity
+    rows): each row's digest, in the sets' order."""
+    rng = np.random.default_rng(na * 100 + nb)
+    a = rng.integers(0, 256, size=(na, length), dtype=np.uint8)
+    b = rng.integers(0, 256, size=(nb, length), dtype=np.uint8)
+    seeds = rng.integers(0, 2 ** 32, size=na + nb, dtype=np.uint32)
+    want = [C.crc32c(r, int(s)) for r, s in zip(np.concatenate([a, b]),
+                                                 seeds)]
+    if na * length < 200000:
+        got, _ = _replay_kernel([a, b], seeds, length, sms)
+        assert got == want
+    got = C.crc32c_row_sets(torch.from_numpy(a), torch.from_numpy(b),
+                            torch.from_numpy(seeds.view(np.int32)))
+    assert got.numpy().view(np.uint32).tolist() == want
+
+
+def test_geometry_fills_the_card():
+    """The write lane's and scrub's launch shapes on 132 SMs: whole
+    tiles a segment, at most 32 segments a row, at most 4 blocks per
+    SM, and the busiest SM's work no larger than any other split's."""
+    assert C.crc32c_geometry(16, 32768, 132) == (16, 8, 128)
+    for n, ngran in ((16, 32768), (6, 32768), (22, 32768), (512, 512),
+                     (192, 512), (704, 512), (704, 32768), (1, 65539)):
+        tps, nseg, grid = C.crc32c_geometry(n, ngran, 132)
+        ntiles = -(-ngran // 256)
+        assert nseg * tps >= ntiles > (nseg - 1) * tps and nseg <= 32
+        assert grid == min(n * nseg, 4 * 132)
+        cost = -(-n * nseg // 132) * (tps + C._ITEM_TILES)
+        for other in range(1, min(ntiles, 32) + 1):
+            t = -(-ntiles // other)
+            assert cost <= -(-n * -(-ntiles // t) // 132) * (t + C._ITEM_TILES)

@@ -117,36 +117,105 @@ def test_gf_bytes_matches_plain(dev, k, m, n):
 @pytest.mark.parametrize("technique,k", [("liberation", 6),
                                          ("liber8tion", 6),
                                          ("blaum_roth", 6)])
-@pytest.mark.parametrize("pw", [1, 7, 64, 1000])
-def test_gf2_packets_matches_plain(dev, technique, k, pw):
+@pytest.mark.parametrize("pw,batch", [(1, 3), (7, 2), (64, 1), (1000, 3),
+                                      (24968, 1)])
+def test_gf2_packets_matches_plain(dev, technique, k, pw, batch):
+    """Encode and the decodes of erasures (0, 1), (0, 3), (0, k): 4-,
+    8- and 16-byte vector variants, tails off the 512-byte warp tile."""
     bits, w = BM.build_bitmatrix(technique, k, None)
     eng = BM.BitMatrixECEngine(bits, k, w, device=dev)
-    inv, _ = eng._inverse_for((0, 3))
-    x = _u8(dev, 3, k * w, pw, seed=pw)
+    mats = [bits] + [eng._inverse_for(e)[0] for e in ((0, 1), (0, 3),
+                                                      (0, k))]
+    x = _u8(dev, batch, k * w, pw, seed=pw)
     before = BM.GF2_PACKETS.launches
-    for mat in (bits, inv):
+    for mat in mats:
         assert torch.equal(BM.gf2_packets(mat, x),
                            BM.gf2_packets_plain(mat, x))
-    assert BM.GF2_PACKETS.launches == before + 2
+    assert BM.GF2_PACKETS.launches == before + len(mats)
 
 
 def test_gf2_packets_many_rows(dev):
-    """More than 32 output rows and a long selector: several row
-    tiles and more than one staged mask chunk."""
+    """More than 32 output rows and a long selector: many staged passes,
+    each XORing into the rows already stored; an unaligned view."""
     rng = np.random.default_rng(3)
     mat = (rng.random((70, 5000)) < 0.3).astype(np.int8)
     x = _u8(dev, 2, 5000, 12, seed=5)
     assert torch.equal(BM.gf2_packets(mat, x), BM.gf2_packets_plain(mat, x))
+    v = _u8(dev, 2, 5000, 13, seed=6)[..., 1:]
+    assert torch.equal(BM.gf2_packets(mat[:3], v),
+                       BM.gf2_packets_plain(mat[:3], v))
 
 
-@pytest.mark.parametrize("n,length", [(1, 1), (5, 100), (3, 4096),
-                                      (16, 65536), (2, 1 << 18)])
+def _seeds(dev, n):
+    return torch.from_numpy(np.random.default_rng(n).integers(
+        0, 2 ** 32, size=n, dtype=np.uint32).view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n,length", [
+    (1, 1), (2, 15), (3, 16), (4, 17), (5, 100), (7, 777), (3, 4096),
+    (16, 65536), (2, 1 << 18), (1024, 33),
+    (512, 8192), (6, 524288), (22, 524288)])
 def test_crc32c_matches_plain(dev, n, length):
     x = _u8(dev, n, length, seed=length)
-    seeds = torch.from_numpy(np.random.default_rng(n).integers(
-        0, 2 ** 32, size=n, dtype=np.uint32).view(np.int32)).to(dev)
+    seeds = _seeds(dev, n)
+    before = C.CRC32C_BATCH.launches
     assert torch.equal(C.crc32c_rows(x, seeds),
                        C.crc32c_rows_plain(x, seeds))
+    assert C.CRC32C_BATCH.launches == before + 1
+
+
+@pytest.mark.parametrize("length", [(1 << 20) + 37])
+def test_crc32c_long_rows(dev, length):
+    """Rows above 2^20 bytes (many segments a row), against the host
+    CRC (the plain version's [32, 8L] matrix is too large here)."""
+    x = _u8(dev, 2, length, seed=length)
+    seeds = _seeds(dev, 2)
+    got = C.crc32c_rows(x, seeds).cpu().numpy().view(np.uint32)
+    host = x.cpu().numpy()
+    want = [C.crc32c(host[i], int(s)) for i, s in
+            enumerate(seeds.cpu().numpy().view(np.uint32))]
+    assert got.tolist() == want
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_crc32c_unaligned_views(dev, offset):
+    """Rows that start off a 16-byte boundary or are not contiguous
+    take the wrapper's front pad; zero length returns the seeds."""
+    base = _u8(dev, 9, 5000 + offset, seed=offset)
+    view = base[:, offset:]
+    seeds = _seeds(dev, 9)
+    assert torch.equal(C.crc32c_rows(view, seeds),
+                       C.crc32c_rows_plain(view.contiguous(), seeds))
+    assert torch.equal(C.crc32c_rows(view[:, :0], seeds), seeds)
+
+
+@pytest.mark.parametrize("na,nb,length", [(16, 6, 524288), (512, 192, 8192),
+                                          (3, 1, 17), (1, 1, 1)])
+def test_crc32c_two_row_sets(dev, na, nb, length):
+    a, b = _u8(dev, na, length, seed=1), _u8(dev, nb, length, seed=2)
+    seeds = _seeds(dev, na + nb)
+    before = C.CRC32C_BATCH.launches
+    got = C.crc32c_row_sets(a, b, seeds)
+    assert C.CRC32C_BATCH.launches == before + 1
+    assert torch.equal(got, torch.cat([
+        C.crc32c_rows_plain(a, seeds[:na]),
+        C.crc32c_rows_plain(b, seeds[na:])]))
+
+
+@pytest.mark.parametrize("bsz,length", [(2, 524288), (64, 8192), (3, 999)])
+def test_encode_digest_one_launch(dev, bsz, length):
+    """GFEncodeDigest's digests equal per-row plain CRCs of the data
+    and parity shards, from one crc32c_batch launch a flush."""
+    from ceph_tpu_torch.ops.gf_torch import GFEncodeDigest
+    coding = rs.reed_sol_van_matrix(8, 3)
+    data = _u8(dev, bsz, 8, length, seed=bsz)
+    fused = GFEncodeDigest(coding, device=dev)
+    before = C.CRC32C_BATCH.launches
+    parity, crcs = fused(data)
+    assert C.CRC32C_BATCH.launches == before + 1
+    assert torch.equal(parity, W.gf_matmul_bytes_plain(coding, data))
+    shards = torch.cat([data, parity], dim=1).reshape(-1, length)
+    assert torch.equal(crcs.reshape(-1), C.crc32c_rows_plain(shards))
 
 
 def test_launch_counts_only_on_launch(dev):

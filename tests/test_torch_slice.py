@@ -232,6 +232,25 @@ def test_every_kernel_is_registered_with_its_source():
     assert sources == {Path(k.source).name for k in build.KERNELS.values()}
 
 
+def test_ctypes_signatures_match_the_c_entries():
+    """Each C entry's parameters, as the source declares them, agree in
+    number and kind (pointer, int, long long) with its ctypes argtypes:
+    a mismatch would only show on the card."""
+    import re
+    kinds = {build._P: "p", build._I: "i", build._L: "l"}
+    found = {}
+    for src in build._sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (ctt_\w+)\(([^)]*)\)', text):
+            params = [q.strip() for q in m.group(2).split(",")]
+            found[m.group(1)] = "".join(
+                "p" if "*" in q else "l" if "long long" in q else "i"
+                for q in params)
+    assert set(found) == set(build._SIGNATURES)
+    for name, args in build._SIGNATURES.items():
+        assert found[name] == "".join(kinds[a] for a in args), name
+
+
 def test_ptxas_report_names_each_kernel_variant(tmp_path, monkeypatch):
     """The build keeps each source's nvcc log; the report gives one line
     per kernel variant with its registers and spills, template
