@@ -51,11 +51,16 @@ _SIGNATURES = {
     # combine words, grid, stream
     "ctt_crc32c_batch": [_P, _P, _I, _I, _P, _P, _L, _I, _I, _P, _P, _P,
                          _P, _I, _P],
-    # in, out, tables, batch, k, rows, rows per block, 16 B segments, stream
+    # in, out, tables, batch, k, rows, rows per block, bytes per row
+    # (a multiple of 4), stream
     "ctt_gf_bytes": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
     # in, out, schedule, schedule length, batch, rows, n, packets per
     # pass, packet words, stream
     "ctt_gf2_packets": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+    # rows, x, r, pos, out, items, hash ids, weights, sizes, ln table,
+    # lanes, buckets, columns, weight sets, stream
+    "ctt_crush_straw2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _P],
 }
 
 

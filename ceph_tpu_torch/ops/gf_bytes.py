@@ -3,14 +3,15 @@ port of ``ceph_tpu.ops.gf_pallas`` (K4, the ``pallas-v1`` kernel).
 
 :func:`gf_matmul_tables` takes ``[..., k, n]`` uint8 and an ``[m, k]``
 GF(2^8) matrix to ``[..., m, n]`` uint8, for any leading batch shape,
-any ``n`` and any matrix up to ``k + m = 256`` and beyond.  On the card
-it launches the ``gf_bytes`` kernel (``csrc/gf_bytes.cu``): the host
-builds ISA-L's pair of 16-entry tables per coefficient
+any ``n`` and any matrix whose tables fit a block's shared memory.  On
+the card it launches the ``gf_bytes`` kernel (``csrc/gf_bytes.cu``), the
+byte-layout entry of the kernel ``gf_words`` runs (``csrc/gf_nibble.cuh``):
+the host builds ISA-L's pair of 16-entry tables per coefficient
 (:func:`nibble_tables`, 32 B each), the kernel stages them in shared
 memory and looks bytes up four at a time with a byte permute.  A row
-length that is not a multiple of 16 is zero-padded (zero bytes map to
-zero bytes, as ``gf_pallas.py:121-155`` pads to 128 lanes); output rows
-whose tables exceed a block's shared memory tile over the grid.
+length that is not a multiple of 4 is zero-padded to one (zero bytes
+map to zero bytes, as ``gf_pallas.py:121-155`` pads to 128 lanes);
+output rows beyond a register tile of 8 tile over the grid.
 
 The plain version is :func:`gf_matmul_gather`, the twin of
 ``ceph_tpu.ops.gf_jax.gf_matmul_gather``: a 64 KiB product table, a
@@ -31,9 +32,21 @@ GF_BYTES = build.register(
     "gf_bytes", "ceph_tpu_torch/csrc/gf_bytes.cu",
     "ceph_tpu/ops/gf_pallas.py:105")
 
-_SEG = 16                       # bytes per thread and row
-_COEF_WORDS = 8                 # LO and HI tables, 16 B each
+_WORD = 4                       # the kernel reads rows as 32-bit words
+_COEF_BYTES = 32                # LO and HI tables, 16 B each
 _SMEM_LIMIT = 48 * 1024         # dynamic shared memory without an opt-in
+_ROW_TILE = 8                   # output rows held in registers
+_K_CHUNK = 8                    # input rows loaded together
+
+
+def nibble_rows_per_block(k: int, rows: int) -> int:
+    """Output rows sharing one block's shared tables in the split-nibble
+    kernel (``csrc/gf_nibble.cuh``): the register tile of 8, fewer if
+    the tables (k padded to the chunk of input rows) fill shared
+    memory; the rest tile over the grid.  0 if one row's tables do not
+    fit."""
+    kpad = -(-k // _K_CHUNK) * _K_CHUNK
+    return min(rows, _ROW_TILE, _SMEM_LIMIT // (kpad * _COEF_BYTES))
 
 
 def nibble_tables(coding: np.ndarray) -> np.ndarray:
@@ -81,12 +94,13 @@ def gf_matmul_tables(coding: np.ndarray, data: torch.Tensor,
         return gf_matmul_gather(coding, data)
     if not data.is_cuda:
         raise ValueError(f"gf_bytes: unsupported device {data.device}")
-    if k * _COEF_WORDS * 4 > _SMEM_LIMIT:
+    rows_per_block = nibble_rows_per_block(k, rows)
+    if rows_per_block < 1:
         raise ValueError(f"gf_bytes: k={k} tables exceed shared memory")
     lead, n = data.shape[:-2], data.shape[-1]
     x = data.reshape(-1, k, n)
-    pad = -n % _SEG
-    if pad or not x.is_contiguous() or x.data_ptr() % _SEG:
+    pad = -n % _WORD
+    if pad or not x.is_contiguous() or x.data_ptr() % _WORD:
         x = torch.nn.functional.pad(x, (0, pad)).contiguous()
     bsz, _, npad = x.shape
     if bsz * npad * rows == 0:
@@ -95,11 +109,10 @@ def gf_matmul_tables(coding: np.ndarray, data: torch.Tensor,
     tables = build.device_table(
         {} if cache is None else cache, ("nibbles", coding.tobytes()),
         lambda: nibble_tables(coding), data.device)
-    rows_per_block = min(rows, _SMEM_LIMIT // (k * _COEF_WORDS * 4))
     out = torch.empty(bsz, rows, npad, dtype=torch.uint8, device=data.device)
     rc = build.library().ctt_gf_bytes(
         x.data_ptr(), out.data_ptr(), tables.data_ptr(), bsz, k, rows,
-        rows_per_block, npad // _SEG, build.stream_ptr(data.device))
+        rows_per_block, npad, build.stream_ptr(data.device))
     build.check(rc, "gf_bytes")
     GF_BYTES.count()
     if pad:

@@ -31,7 +31,8 @@ import torch
 
 from ..kernels import build
 from ..utils.device import resolve_device
-from .gf_bytes import gf_matmul_gather, nibble_tables
+from .gf_bytes import (gf_matmul_gather, nibble_rows_per_block,
+                       nibble_tables)
 
 # K1 _gf_apply_words; K3 _gf_apply_pallas2 (gf_pallas2.py:113) runs
 # through the same kernel on a uint8 -> int32 view
@@ -50,9 +51,6 @@ GF_PLANES = build.register(
 _WORD = 4
 # dynamic shared memory the kernels may take without an opt-in
 _SMEM_LIMIT = 48 * 1024
-_ROW_TILE = 8           # gf_words: output rows held in registers
-_K_CHUNK = 8            # gf_words: input rows loaded together
-_COEF_BYTES = 32        # gf_words: LO and HI table of one coefficient
 _FRAG_BYTES = 256       # gf_planes: one k32 x n8 B tile, all 32 lanes
 
 
@@ -129,12 +127,7 @@ def _launch_gf_words(tables: torch.Tensor, words: torch.Tensor,
     if words.dim() != 3 or words.shape[1] != k:
         raise ValueError(f"gf_words: want [B, {k}, nw], got "
                          f"{tuple(words.shape)}")
-    # rows sharing one block's tables (k padded to the kernel's chunk of
-    # input rows): the register tile of 8, fewer if the tables fill
-    # shared memory; the rest tile over the grid
-    kpad = -(-k // _K_CHUNK) * _K_CHUNK
-    rows_per_block = min(rows, _ROW_TILE,
-                         _SMEM_LIMIT // (kpad * _COEF_BYTES))
+    rows_per_block = nibble_rows_per_block(k, rows)
     if rows_per_block < 1:
         raise ValueError(f"gf_words: k={k} tables exceed shared memory")
     bsz, _, nw = words.shape

@@ -8,9 +8,11 @@ one, or without the package beside it, it exits non-zero and prints no
 result.  Phases (any failure exits non-zero; each prints its wall
 time):
 
-1. build the six CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
+1. build the seven CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
    and print the ``-Xptxas -v`` registers and spills of ``gf_words``,
-   ``gf_planes``, ``crc32c_batch`` and ``gf2_packets``;
+   ``gf_bytes``, ``gf_planes``, ``crc32c_batch``, ``gf2_packets`` and
+   ``crush_straw2``, and the instructions of one item of
+   ``crush_straw2``'s loop by pipe, read from its SASS (``cuobjdump``);
 2. hold each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge shapes (odd lengths; for
    ``gf_words`` and ``gf_planes`` rows beyond their register tiles, word
@@ -19,15 +21,19 @@ time):
    entry), byte for byte; and at the write lane's other digest launches
    ([6, 524288] parity rows, the fused [16 + 6, 524288] launch,
    [512, 8192] rows of 64 KiB objects) and the liberation (0, 1) decode
-   of ``gf2_packets``;
+   of ``gf2_packets``; ``crush_straw2`` (K7) at the host level of the
+   4096-OSD map ([1 Mi lanes, 64 items]) and at edge shapes (buckets of
+   1, 3 and 65 items, an all-zero bucket, 3 weight sets, lane counts off
+   the block, [131072, 64]);
 3. drive the main path at full width, launch counts set to 0 first and
    read after each phase:
    - ``ec_bench``: encode and decode sweep (EC pool k=8 m=3
      reed_sol_van, 4 KiB / 64 KiB / 1 MiB stripes, 64 MiB per launch,
      erasures (0, 9), ``--verify``);
    - K4 leg: ``GFLinear(backend="bytes")`` on the 1 MiB launch shape,
-     encode and the (0, 9) decode matrix, held equal to the ``words``
-     route, plus edge lengths and k=20 m=4;
+     encode and the (0, 9) decode matrix, held equal to the plain
+     ``gf_matmul_gather`` and to the ``words`` route, plus edge lengths
+     (n 4/100/1000/4132) at k=8 m=3 and k=20 m=4;
    - plugin sweep: ``ec_bench --verify`` encode and decode at 1 MiB
      stripes, 64 MiB per launch, erasures (0, 1), for jerasure
      liberation / liber8tion / blaum_roth (k=6 m=2), shec k=4 m=3 c=2
@@ -40,6 +46,15 @@ time):
      of 16 MiB (segmented), the parity recheck of the 64 stripes with
      two of them corrupted (through the recovery engine's
      ``flush_sync`` and standalone), and culprit isolation;
+   - crush: BASELINE row 4's map (4096 OSDs, 64 hosts x 64) with 5% of
+     the OSDs out and 5% at half weight; 1 Mi PGs through the replicated
+     rule (``chooseleaf_firstn host``, size 3) and an EC pool's
+     ``chooseleaf_indep`` rule (result_max 11) on the card, each held
+     equal to the plain version on the card for every PG and to the
+     scalar ``do_rule`` on 1024 sampled PGs (host processes in
+     parallel); then ``osdmaptool --createsimple 4096`` and
+     ``--test-map-pgs --require-batched`` (262144 PGs), its PG count and
+     engine checked; ``[crush]`` lines give PGs/s (host clock);
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -51,7 +66,11 @@ time):
    cold (graphs cycling through >= 96 MiB of distinct inputs, twice the
    L2) at the write lane's launch shapes, ``gf2_packets`` also at the
    decode shape, and gf_words at the lrc plugin's per-stripe layer
-   shapes; print one ``kernels`` JSON line (``crc32c_batch``'s ``ms`` is
+   shapes, ``crush_straw2`` at the host level's launch shape (its
+   operations bound from the SASS count of phase 1: the most loaded of
+   issue and the pipes, at the card's SM count and maximum SM clock);
+   print one
+   ``kernels`` JSON line (``crc32c_batch``'s ``ms`` is
    its cold time, ``ms_warm`` the graph time of one held input),
    then the card's name and power limit, and last
    ``{"ok": true, "device": ...}``.
@@ -59,12 +78,18 @@ time):
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import multiprocessing
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -101,6 +126,10 @@ LRC_CHUNK = 256 << 10                   # lrc k=4 chunk of a 1 MiB stripe
 CORRUPT_ONE, CORRUPT_PAIR = (0, 2), (1, (1, 9))  # (object, shard(s))
 HBM_BPS = 3.35e12                       # H100 SXM memory rate
 INT8_OPS = 1979e12                      # H100 SXM dense int8 rate
+CRUSH_HOSTS, CRUSH_PER_HOST = 64, 64    # BASELINE row 4: 4096 OSDs
+CRUSH_PGS, CRUSH_SAMPLE = 1 << 20, 1024
+CRUSH_EC_WIDTH = 11                     # an EC pool's k + m (8 + 3)
+CRUSH_NONE = -0x7FFFFFFF
 
 
 def fail(msg: str):
@@ -154,6 +183,147 @@ def crc32c_long_host(objs: np.ndarray, piece: int = 64 << 10) -> np.ndarray:
         c = np.bitwise_xor.reduce(np.where(bits == 1, cols, 0), axis=1,
                                   dtype=np.uint32) ^ parts[:, p]
     return c
+
+
+def oracle_rows(cmap, rule, xs, result_max, weight) -> np.ndarray:
+    """The scalar ``do_rule`` of every input, NONE-padded rows."""
+    from ceph_tpu_torch.crush.mapper import do_rule
+    out = np.full((len(xs), result_max), CRUSH_NONE, dtype=np.int32)
+    for j, x in enumerate(xs):
+        row = do_rule(cmap, rule, int(x), result_max, weight)
+        out[j, :len(row)] = row
+    return out
+
+
+def straw2_edge_tables(K7, dev, sizes, positions, seed, zero_rows=()):
+    """Random K7 tables of buckets of ``sizes`` items (every 7th weight
+    0, ``zero_rows`` all 0) with ``positions`` weight sets."""
+    rng = np.random.default_rng(seed)
+    nb, S = len(sizes), max(sizes)
+    items = rng.integers(0, 1 << 20, size=(nb, S)).astype(np.int32)
+    hids = rng.integers(-(1 << 31), 1 << 31, size=(nb, S)).astype(np.int32)
+    w = rng.integers(0, 4 * 0x10000, size=(positions, nb, S))
+    w[:, :, ::7] = 0
+    for row in zero_rows:
+        w[:, row] = 0
+    return K7.Straw2Tables(items, hids, w, sizes, dev), rng
+
+
+def straw2_lanes(torch, dev, rng, rows, n, positions):
+    """K7 lane arguments: bucket rows drawn from ``rows``, u32 inputs,
+    draw indices 0..7, positions (some past the last weight set)."""
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.choice(np.asarray(rows), size=n),
+        rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.int64),
+        rng.integers(0, 8, size=n), rng.integers(0, positions + 1, size=n))]
+
+
+def crush_phase(dev, rng, build, hosts: int, per_host: int, n_pgs: int,
+                n_sample: int):
+    """Map ``n_pgs`` PGs on the ``hosts`` x ``per_host`` OSD map through
+    the replicated and the EC rule on ``dev``, each held against the
+    plain version and ``do_rule``, then run ``osdmaptool
+    --createsimple`` and ``--test-map-pgs`` on it."""
+    import torch
+    from ceph_tpu_torch.crush import straw2 as K7
+    from ceph_tpu_torch.crush.map import build_hierarchy
+    from ceph_tpu_torch.crush.torch_mapper import BatchMapper
+    from ceph_tpu_torch.tools import osdmaptool
+    # CRUSH placement: BASELINE row 4 (4096 OSDs, 1 Mi PGs), with 5% of
+    # the OSDs out and 5% at half weight so is_out and the retries run
+    n_osd = hosts * per_host
+    crush_rw = np.full(n_osd, 0x10000, dtype=np.uint32)
+    order = rng.permutation(n_osd)
+    crush_rw[order[:n_osd // 20]] = 0
+    crush_rw[order[n_osd // 20:n_osd // 10]] = 0x8000
+    pgs = np.arange(n_pgs, dtype=np.uint32)
+    sample = np.sort(rng.choice(n_pgs, size=n_sample, replace=False))
+    rules = (("replicated chooseleaf_firstn host", "chooseleaf_firstn", 3),
+             ("EC chooseleaf_indep host", "chooseleaf_indep",
+              CRUSH_EC_WIDTH))
+    maps = {name: build_hierarchy(1, hosts, per_host, rule=name)
+            for _label, name, _w in rules}
+    got = {}
+    for label, name, width in rules:
+        mapper = BatchMapper(maps[name], 0, result_max=width, device=dev)
+        before = build.counts()["crush_straw2"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        got[name] = mapper(pgs, crush_rw)
+        dt = time.perf_counter() - t0
+        k7_launches = build.counts()["crush_straw2"] - before
+        if k7_launches <= 0:
+            fail(f"crush {label}: K7 was not launched")
+        log(f"[crush] {label}: {n_pgs} PGs on {n_osd} OSDs in "
+            f"{dt * 1e3:.1f} ms = {n_pgs / dt:,.0f} PGs/s (host clock, "
+            f"chunks of {mapper._chunk()} PGs, {k7_launches} crush_straw2 "
+            f"launches, peak {torch.cuda.max_memory_allocated(dev) >> 20} "
+            f"MiB allocated, {got[name].shape[1]} slots, "
+            f"{int((got[name] == CRUSH_NONE).sum())} NONE)")
+    # then, with the timings taken, do_rule on the sample in host
+    # processes (spawned, joined on leaving the block) while the card
+    # runs the plain version (in the smaller chunks its [lanes, S] rows
+    # allow: placements do not depend on the chunk)
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t_ref = time.perf_counter()
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {name: [pool.submit(oracle_rows, maps[name], 0, part, width,
+                                   [int(v) for v in crush_rw])
+                       for part in np.array_split(pgs[sample], workers)]
+                for _label, name, width in rules}
+        for label, name, width in rules:
+            plain = BatchMapper(maps[name], 0, result_max=width, device=dev)
+            plain._straw2 = K7.straw2_plain
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            want = plain(pgs, crush_rw)
+            dt_plain = time.perf_counter() - t0
+            diff = int((~(got[name] == want).all(axis=1)).sum())
+            if diff:
+                fail(f"crush {label}: {diff} PGs differ from the plain "
+                     f"version")
+            log(f"[crush] {label}: all {n_pgs} PGs equal the plain version "
+                f"on the card ({dt_plain * 1e3:.1f} ms in chunks of "
+                f"{plain._chunk()} PGs, peak "
+                f"{torch.cuda.max_memory_allocated(dev) >> 20} MiB "
+                f"allocated, host processes running beside it)")
+        for label, name, width in rules:
+            ref = np.concatenate([f.result() for f in refs[name]])
+            diff = int((~(got[name][sample] == ref).all(axis=1)).sum())
+            if diff:
+                fail(f"crush {label}: {diff} of {n_sample} sampled PGs "
+                     f"differ from do_rule")
+            log(f"[crush] {label}: {n_sample} sampled PGs equal do_rule "
+                f"({workers} host processes, "
+                f"{time.perf_counter() - t_ref:.1f} s since they started)")
+    with tempfile.TemporaryDirectory() as tmp:
+        mapfile = os.path.join(tmp, "osdmap.json")
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = osdmaptool.main([mapfile, "--createsimple", str(n_osd)])
+            t0 = time.perf_counter()
+            rc2 = osdmaptool.main([mapfile, "--test-map-pgs",
+                                   "--require-batched", "--device",
+                                   dev.type])
+            dt = time.perf_counter() - t0
+        if rc or rc2:
+            fail(f"osdmaptool exited {rc}, {rc2}: {err.getvalue()[-400:]}")
+        pool = osdmaptool.load_osdmap(mapfile).pools[0]
+    report = out.getvalue().splitlines()
+    mapped = sum(int(ln.split("\t")[1]) for ln in report
+                 if ln.startswith("osd."))
+    if mapped != pool.pg_num * pool.size:
+        fail(f"osdmaptool --test-map-pgs mapped {mapped} PG slots, want "
+             f"{pool.pg_num} x {pool.size}")
+    if f"osdmaptool: engine: batched ({dev.type})" not in err.getvalue():
+        fail(f"osdmaptool did not name the batched mapper: "
+             f"{err.getvalue()[-400:]}")
+    log(f"[crush] osdmaptool --createsimple {n_osd} --test-map-pgs "
+        f"--require-batched: {pool.pg_num} PGs x {pool.size} = {mapped} "
+        f"slots, engine batched ({dev.type}); "
+        f"{[ln for ln in report if ln.startswith('mapped ')][0]}; "
+        f"{pool.pg_num / dt:,.0f} PGs/s with the report (host clock)")
 
 
 def time_plain(torch, fn, iters: int = 2) -> float:
@@ -248,6 +418,17 @@ def clocks() -> str:
     return out.stdout.strip() or out.stderr.strip()
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.split()[0]) * 1e6
+
+
 def main():
     try:
         import torch
@@ -256,7 +437,10 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a GPU")
     try:
-        from ceph_tpu_torch.kernels import build
+        from ceph_tpu_torch.kernels import build, sass
+        from ceph_tpu_torch.crush import straw2 as K7
+        from ceph_tpu_torch.crush.map import build_hierarchy
+        from ceph_tpu_torch.crush.torch_mapper import BatchMapper
         from ceph_tpu_torch.ec import bitmatrix as BM
         from ceph_tpu_torch.ec import create_erasure_code
         from ceph_tpu_torch.ops import gf_bytes as GB
@@ -290,11 +474,26 @@ def main():
         phase_t[0] = now
 
     # -- 1. build ---------------------------------------------------------
-    build.build(verbose=True)
+    lib_path = build.build(verbose=True)
     build.library()
-    for stem in ("gf_words", "gf_planes", "crc32c_batch", "gf2_packets"):
+    for stem in ("gf_words", "gf_bytes", "gf_planes", "crc32c_batch",
+                 "gf2_packets", "crush_straw2"):
         for line in build.ptxas_report(stem):
             log(f"[ptxas] {stem}.cu {line}")
+    # K7's operations bound: one item of its loop as compiled, on the
+    # path this run's items take (weight > 0, a numerator past 32 bits:
+    # every forward branch falls through)
+    k7_mix = sass.loop_mix(sass.disassemble(lib_path), "crush_straw2_kernel")
+    k7_pipes = sass.pipe_counts(k7_mix)
+    k7_item_clocks = sass.clocks_per_iteration(k7_mix)
+    k7_by = max(k7_pipes, key=lambda p: k7_pipes[p] / sass.SM_RATES[p])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sm_hz = max_sm_clock_hz()
+    log(f"[sass] crush_straw2 loop, one item: {k7_pipes} instructions "
+        f"(per SM and clock: {sass.SM_RATES}); {k7_item_clocks:.4f} SM "
+        f"clocks a thread, bound by {k7_by}; {sms} SMs at "
+        f"{sm_hz / 1e6:.0f} MHz; top opcodes "
+        f"{k7_mix.most_common(8)}")
     phase_done("build")
 
     coding = rs.reed_sol_van_matrix(K, M)
@@ -327,6 +526,19 @@ def main():
     shapes["gf2_packets"] = rand_u8(LAUNCH_BYTES // SIZES[2],
                                     lib_ec.k * lib_ec.w,
                                     lib_chunk // lib_ec.w)
+    # K7 at the host level of BASELINE row 4's map: the mapper maps the
+    # 1 Mi PGs in one chunk, so the first rep's host level launches 1 Mi
+    # lanes over host buckets of 64 OSDs
+    crush_map = build_hierarchy(1, CRUSH_HOSTS, CRUSH_PER_HOST)
+    k7_mapper = BatchMapper(crush_map, 0, result_max=3, device=dev)
+    if k7_mapper._chunk() < CRUSH_PGS:
+        fail(f"the mapper cuts {CRUSH_PGS} PGs into chunks of "
+             f"{k7_mapper._chunk()}")
+    k7_tab = k7_mapper._tab
+    host_rows = [row for row, b in enumerate(crush_map.buckets)
+                 if b is not None and b.type == 1]
+    k7_args = straw2_lanes(torch, dev, rng, host_rows, CRUSH_PGS, 1)
+    k7_shape = [CRUSH_PGS, CRUSH_PER_HOST]
     seeds = torch.from_numpy(rng.integers(0, 2 ** 32, size=(2 * K,),
                                           dtype=np.uint32).view(np.int32)
                              ).to(dev)
@@ -354,6 +566,8 @@ def main():
                                                shapes["gf2_packets"], tables),
                         lambda: BM.gf2_packets_plain(lib_bits,
                                                      shapes["gf2_packets"])),
+        "crush_straw2": (lambda: K7.straw2_choose(k7_tab, *k7_args),
+                         lambda: K7.straw2_plain(k7_tab, *k7_args)),
     }
     errs = {}
     for name, (kern, plain) in runs.items():
@@ -428,6 +642,24 @@ def main():
             if not torch.equal(BM.gf2_packets(mat, x),
                                BM.gf2_packets_plain(mat, x)):
                 fail(f"gf2_packets disagrees at pw={pw}")
+    # K7: buckets of 1, 3 and 65 items, an all-zero bucket, 3 weight
+    # sets, lane counts off the 256-thread block
+    for sizes, positions, lanes in (([1, 3, 65], 1, 1000),
+                                    ([3, 65, 1, 64], 3, 4099),
+                                    ([65, 5], 2, 257),
+                                    ([64] * 8, 1, 131072)):
+        tab, erng = straw2_edge_tables(K7, dev, sizes, positions, lanes,
+                                       zero_rows=(1,))
+        args = straw2_lanes(torch, dev, erng, range(len(sizes)), lanes,
+                            positions)
+        err = max_abs_err(torch, K7.straw2_choose(tab, *args),
+                          K7.straw2_plain(tab, *args))
+        if err:
+            fail(f"crush_straw2 disagrees at sizes {sizes} P={positions} "
+                 f"lanes={lanes}")
+    log("[check] crush_straw2 edge shapes (buckets of 1/3/65 items, an "
+        "all-zero bucket, 1-3 weight sets, 257/1000/4099 lanes, [131072, "
+        "64]) equal the plain version")
     # the write lane's other crc32c_batch launches (parity rows of a 4 MiB
     # flush; GFEncodeDigest's one launch over data and parity rows; data
     # rows of a 64 KiB-object flush) and the liberation (0, 1) decode
@@ -502,20 +734,27 @@ def main():
         by = GFLinear(mat, backend="bytes", device=dev)
         wo = GFLinear(mat, backend="words", device=dev)
         got = by(k4_in)
+        err = max_abs_err(torch, got, GB.gf_matmul_gather(mat, k4_in))
+        if err:
+            fail(f"K4 leg {label}: bytes route differs from the plain "
+                 f"gf_matmul_gather")
         if not torch.equal(got, wo(k4_in)):
             fail(f"K4 leg {label}: bytes route differs from words route")
         k4_out[label] = got
         log(f"[k4] {label} {list(k4_in.shape)} -> {list(got.shape)}: "
-            f"bytes route equals words route")
+            f"bytes route equals the plain gf_matmul_gather (max_abs_err "
+            f"{err}) and the words route")
     for n in (4, 100, 1000, 4096 + 36):
         for k, m in ((K, M), (20, 4)):
             mat = rs.reed_sol_van_matrix(k, m)
             x = rand_u8(3, k, n)
             if not torch.equal(GFLinear(mat, backend="bytes", device=dev)(x),
-                               GFLinear(mat, device=dev)(x)):
-                fail(f"K4 leg: bytes route differs at k={k} m={m} n={n}")
+                               GB.gf_matmul_gather(mat, x)):
+                fail(f"K4 leg: bytes route differs from the plain version "
+                     f"at k={k} m={m} n={n}")
     torch.cuda.synchronize()
-    log("[k4] edge shapes (n 4/100/1000/4132, k=8 m=3 and k=20 m=4) ok")
+    log("[k4] edge shapes (n 4/100/1000/4132, k=8 m=3 and k=20 m=4) equal "
+        "the plain gf_matmul_gather")
     close_phase("k4_leg")
 
     plugin_runs = {}
@@ -625,6 +864,10 @@ def main():
         t.join(timeout=10)
     close_phase("deep_scrub")
 
+    crush_phase(dev, rng, build, CRUSH_HOSTS, CRUSH_PER_HOST, CRUSH_PGS,
+                CRUSH_SAMPLE)
+    close_phase("crush")
+
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
     log(f"[launches] {json.dumps(phase_counts)}")
@@ -632,7 +875,8 @@ def main():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
     for phase, name in (("k4_leg", "gf_bytes"),
-                        ("plugin_sweep", "gf2_packets")):
+                        ("plugin_sweep", "gf2_packets"),
+                        ("crush", "crush_straw2")):
         if phase_counts[phase][name] <= 0:
             fail(f"kernel {name} was not launched on its phase {phase}")
 
@@ -703,8 +947,8 @@ def main():
     phase_done("verify")
 
     # -- 5. timings -----------------------------------------------------------
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+    def bound(nbytes, ops, rate=INT8_OPS):
+        tb, to = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     gw, ge = shapes["gf_words"], shapes["gf_expand"]
@@ -730,6 +974,16 @@ def main():
         # read N packets, write R; 0/1 MACs R x N per bit column
         "gf2_packets": (g2.numel() * (r2 + n2) // n2,
                         2 * r2 * 8 * g2.numel()),
+        # read 4 int32 a lane and the tables, write 1; the SM clocks of
+        # one loop item (the SASS count) for each item of positive
+        # weight in this run's rows, over the card's SMs
+        "crush_straw2": (
+            20 * k7_args[0].numel() + sum(
+                a.numel() * a.element_size() for a in (
+                    k7_tab.items, k7_tab.hash_ids, k7_tab.weights,
+                    k7_tab.sizes, k7_tab.ln16)),
+            k7_item_clocks * int((k7_tab.weights[0][k7_args[0]] > 0).sum()),
+            sms * sm_hz),
     }
     log(f"[clocks] before timing: {clocks()}")
     # crc32c_batch cold (graphs cycling through >= 96 MiB of distinct
@@ -769,8 +1023,8 @@ def main():
         plain_ms = time_plain(torch, plain)
         b_ms, b_by = bound(*work[name])
         k = build.KERNELS[name]
-        shape = (shapes[name].shape if name != "gf_words"
-                 else words_in.shape)
+        shape = (k7_shape if name == "crush_straw2" else words_in.shape
+                 if name == "gf_words" else shapes[name].shape)
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],

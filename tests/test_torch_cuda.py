@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from ceph_tpu_torch.crush import straw2 as K7
+from ceph_tpu_torch.crush.torch_mapper import BatchMapper
 from ceph_tpu_torch.ec import bitmatrix as BM
 from ceph_tpu_torch.kernels import build
 from ceph_tpu_torch.ops import gf_bytes as GB
@@ -102,7 +104,7 @@ def test_gf_planes_edge_shapes(dev, k, rows, batch, nw):
 
 
 @pytest.mark.parametrize("k,m", [(2, 1), (8, 3), (20, 4), (128, 128)])
-@pytest.mark.parametrize("n", [4, 100, 4096, 4096 + 36])
+@pytest.mark.parametrize("n", [1, 4, 100, 1001, 4096, 4096 + 36])
 def test_gf_bytes_matches_plain(dev, k, m, n):
     coding = rs.reed_sol_van_matrix(k, m)
     dm = rs.decode_matrix(coding, k, list(range(min(m, k))))
@@ -112,6 +114,99 @@ def test_gf_bytes_matches_plain(dev, k, m, n):
         assert torch.equal(GB.gf_matmul_tables(mat, x),
                            GB.gf_matmul_gather(mat, x))
     assert GB.GF_BYTES.launches == before + 2
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_gf_bytes_unaligned_views(dev, offset):
+    """Rows that are views off the word grid are copied to a padded
+    contiguous tensor, never read misaligned."""
+    coding = rs.reed_sol_van_matrix(8, 3)
+    x = _u8(dev, 64, 8, 131072 + offset, seed=offset)[..., offset:]
+    assert torch.equal(GB.gf_matmul_tables(coding, x),
+                       GB.gf_matmul_gather(coding, x.contiguous()))
+
+
+def _straw2_tables(dev, sizes, positions, seed, zero_rows=()):
+    rng = np.random.default_rng(seed)
+    nb, S = len(sizes), max(sizes)
+    items = rng.integers(0, 1 << 20, size=(nb, S)).astype(np.int32)
+    hids = rng.integers(-(1 << 31), 1 << 31, size=(nb, S)).astype(np.int32)
+    w = rng.integers(0, 4 * 0x10000, size=(positions, nb, S))
+    w[:, :, ::7] = 0
+    for row in zero_rows:
+        w[:, row] = 0
+    return K7.Straw2Tables(items, hids, w, sizes, dev), rng
+
+
+@pytest.mark.parametrize("sizes,positions,lanes", [
+    ([64] * 65, 1, 131072),          # host buckets of the 4096-OSD map
+    ([1, 3, 65], 1, 1000),           # lanes not a multiple of the block
+    ([3, 65, 1, 64], 3, 4099),       # weight sets, positions off the end
+    ([65, 5], 2, 257)])
+def test_crush_straw2_matches_plain(dev, sizes, positions, lanes):
+    tab, rng = _straw2_tables(dev, sizes, positions, lanes, zero_rows=(1,))
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, len(sizes), size=lanes),
+        rng.integers(0, 1 << 32, size=lanes, dtype=np.uint64).astype(
+            np.int64),
+        rng.integers(0, 100, size=lanes), rng.integers(-1, 5, size=lanes))]
+    before = K7.CRUSH_STRAW2.launches
+    got = K7.straw2_choose(tab, *args)
+    assert K7.CRUSH_STRAW2.launches == before + 1
+    assert torch.equal(got.to(torch.int64),
+                       K7.straw2_plain(tab, *args).to(torch.int64))
+
+
+@pytest.mark.parametrize("rule", ["chooseleaf_firstn", "chooseleaf_indep"])
+def test_mapper_kernel_equals_plain(dev, rule):
+    from ceph_tpu_torch.crush.map import build_hierarchy
+    cmap = build_hierarchy(1, 16, 16, rule=rule)
+    rw = np.full(256, 0x10000, dtype=np.uint32)
+    rw[::20] = 0
+    rw[5::20] = 0x8000
+    xs = np.arange(20000, dtype=np.uint32)
+    before = K7.CRUSH_STRAW2.launches
+    got = BatchMapper(cmap, 0, result_max=4, device=dev)(xs, rw)
+    assert K7.CRUSH_STRAW2.launches > before
+    plain = BatchMapper(cmap, 0, result_max=4, device=dev)
+    plain._straw2 = K7.straw2_plain
+    want = plain(xs, rw)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("out", [[], list(range(11)), list(range(12))])
+def test_multiblock_mapper_on_the_card(dev, out):
+    """A two-root hybrid rule (one OSD from the first root, two from the
+    second) on the card, with the first root's OSDs all, nearly all or
+    none out: each block's NONE padding squeezes out on the device, and
+    every PG equals ``do_rule``."""
+    from ceph_tpu_torch.crush.map import Bucket, CrushMap, Rule, Step
+    from ceph_tpu_torch.crush.mapper import do_rule
+    cmap = CrushMap(types={0: "osd", 1: "host", 10: "root"})
+    for root, first in ((-1, 0), (-2, 12)):
+        hosts = []
+        for h in range(3):
+            hid = -3 - 3 * (-1 - root) - h
+            cmap.add_bucket(Bucket(id=hid, type=1,
+                                   items=list(range(first + 4 * h,
+                                                    first + 4 * h + 4)),
+                                   weights=[0x10000] * 4))
+            hosts.append(hid)
+        cmap.add_bucket(Bucket(id=root, type=10, items=hosts,
+                               weights=[0x40000] * 3))
+    cmap.max_devices = 24
+    cmap.rules.append(Rule(id=0, name="hybrid", steps=[
+        Step("take", -1), Step("chooseleaf_firstn", 1, 1), Step("emit"),
+        Step("take", -2), Step("chooseleaf_firstn", 2, 1), Step("emit")]))
+    rw = np.full(24, 0x10000, dtype=np.uint32)
+    rw[out] = 0
+    xs = np.arange(2000, dtype=np.uint32)
+    got = BatchMapper(cmap, 0, device=dev)(xs, rw)
+    want = np.full((len(xs), 3), -0x7FFFFFFF, dtype=np.int32)
+    for i, x in enumerate(xs):
+        row = do_rule(cmap, 0, int(x), 3, [int(v) for v in rw])
+        want[i, :len(row)] = row
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("technique,k", [("liberation", 6),

@@ -7,7 +7,8 @@
   ceph_tpu's scrub of the same writes;
 - import hygiene: nothing in ``ceph_tpu_torch`` (nor ``chip_smoke.py``)
   imports jax or ceph_tpu;
-- entry points raise without CUDA unless ``device="cpu"``;
+- entry points (the CRUSH mapper among them) raise without CUDA unless
+  ``device="cpu"``;
 - a request for the card never routes to a plain version.
 """
 
@@ -21,6 +22,11 @@ import torch
 from ceph_tpu.ec import create_erasure_code as j_create
 from ceph_tpu.osd.batch_engine import BatchEngine as JBatchEngine
 from ceph_tpu.scrub import engine as JS
+from ceph_tpu.crush import build_hierarchy
+from ceph_tpu.crush.compiler import crushmap_to_dict
+from ceph_tpu_torch.crush import straw2 as K7
+from ceph_tpu_torch.crush.compiler import crushmap_from_dict
+from ceph_tpu_torch.crush.torch_mapper import BatchMapper
 from ceph_tpu_torch.ec import bitmatrix as BM
 from ceph_tpu_torch.ec import create_erasure_code
 from ceph_tpu_torch.ec.torch_backend import MatrixECEngine
@@ -157,7 +163,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: GFEncodeDigest(coding),
                  lambda: BatchEngine("t"),
                  lambda: W.ResidentPlanes(np.zeros((4, 512), np.uint8)),
-                 lambda: C.crc32c_batch(np.zeros((2, 8), np.uint8))):
+                 lambda: C.crc32c_batch(np.zeros((2, 8), np.uint8)),
+                 lambda: BatchMapper(crushmap_from_dict(crushmap_to_dict(
+                     build_hierarchy(1, 2, 2))), 0, result_max=2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu").type == "cpu"
@@ -179,6 +187,8 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
                         lambda *a, **k: called.append("gather"))
     monkeypatch.setattr(BM, "gf2_packets_plain",
                         lambda *a, **k: called.append("packets"))
+    monkeypatch.setattr(K7, "straw2_plain",
+                        lambda *a, **k: called.append("straw2"))
     coding = rs.reed_sol_van_matrix(4, 2)
     meta = dict(device="meta")
     calls = [
@@ -197,6 +207,10 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
         lambda: BM.gf2_packets(
             np.eye(3, dtype=np.int8),
             torch.empty(2, 3, 64, dtype=torch.uint8, **meta)),
+        lambda: K7.straw2_choose(
+            K7.Straw2Tables(np.zeros((1, 2)), np.zeros((1, 2)),
+                            np.ones((1, 1, 2)), [2], "meta"),
+            *(torch.zeros(4, dtype=torch.int32, **meta),) * 4),
     ]
     for call in calls:
         with pytest.raises((ValueError, RuntimeError)):
@@ -223,7 +237,8 @@ def test_kernel_launch_path_raises_without_its_library(monkeypatch):
 
 def test_every_kernel_is_registered_with_its_source():
     assert set(build.KERNELS) == {"gf_words", "gf_expand", "gf_planes",
-                                  "crc32c_batch", "gf_bytes", "gf2_packets"}
+                                  "crc32c_batch", "gf_bytes", "gf2_packets",
+                                  "crush_straw2"}
     for kern in build.KERNELS.values():
         assert (REPO / kern.source).exists()
         path, line = kern.replaces.split(":")
