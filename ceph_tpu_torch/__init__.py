@@ -1,5 +1,6 @@
-"""ceph_tpu_torch — the PyTorch/CUDA port of ceph_tpu's erasure-coded
-data plane, for one NVIDIA H100.
+"""ceph_tpu_torch — the PyTorch/CUDA port of ceph_tpu's device data plane
+(erasure coding, deep scrub, CRUSH placement, compression and dedup
+fingerprints), for one NVIDIA H100.
 
 ``ceph_tpu`` (JAX on a TPU) stays the reference: every module here
 mirrors a module there by name and is held byte-for-byte against it by

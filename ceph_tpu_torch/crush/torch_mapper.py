@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device_profiler import DeviceProfiler
 from ..utils.device import resolve_device
 from . import straw2 as K7
 from .map import CRUSH_ITEM_NONE, CrushMap, Rule
@@ -760,7 +761,20 @@ class BatchMapper:
     # -- the entry point ----------------------------------------------------
 
     def __call__(self, xs, reweight=None) -> np.ndarray:
-        return self._map(xs, reweight).cpu().numpy()
+        xs = np.asarray(xs, dtype=np.uint32)
+        ln = DeviceProfiler.active().start(
+            "crush_map", bytes_in=xs.nbytes + 4 * max(self.cmap.max_devices,
+                                                      1),
+            rows=len(xs), rows_used=len(xs), cache_hit=self.cache_hit)
+        try:
+            out = self._map(xs, reweight).cpu().numpy()
+        except Exception:
+            if ln is not None:
+                ln.abort()
+            raise
+        if ln is not None:
+            ln.finish(bytes_out=out.nbytes)
+        return out
 
     def _map(self, xs, reweight) -> torch.Tensor:
         """``__call__``'s placements as an int32 tensor on the device."""

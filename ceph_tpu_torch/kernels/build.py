@@ -61,6 +61,10 @@ _SIGNATURES = {
     # lanes, buckets, columns, weight sets, stream
     "ctt_crush_straw2": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _I, _I, _P],
+    # in, out, gear table, rows, row length, vector path, stream
+    "ctt_gear_hash": [_P, _P, _P, _I, _L, _I, _P],
+    # in, out, rows, row length, vector path, stream
+    "ctt_run_starts": [_P, _P, _I, _L, _I, _P],
 }
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device_profiler import DeviceProfiler
 from ..scrub.crc32c import crc32c_row_sets
 from ..utils.device import resolve_device
 from .gf import gf_bitmatrix
@@ -112,11 +113,25 @@ class GFLinear:
 
     def __call__(self, data) -> torch.Tensor:
         x = to_device(data, self.device)
-        if self.backend == "words":
-            return gf_matmul_bytes(self.coding, x, self._tables)
-        if self.backend == "bytes":
-            return gf_matmul_tables(self.coding, x, self._tables)
-        return gf_matmul_bits(self._bits, x, self.m)
+        rows = int(x.shape[0]) if x.dim() else 0
+        cache_hit = bool(self._tables)
+        ln = DeviceProfiler.active().start(
+            "gf_encode", bytes_in=x.numel(), rows=rows,
+            cache_hit=cache_hit, backend=self.backend)
+        try:
+            if self.backend == "words":
+                out = gf_matmul_bytes(self.coding, x, self._tables)
+            elif self.backend == "bytes":
+                out = gf_matmul_tables(self.coding, x, self._tables)
+            else:
+                out = gf_matmul_bits(self._bits, x, self.m)
+        except Exception:
+            if ln is not None:
+                ln.abort()
+            raise
+        if ln is not None:
+            ln.finish(out=out, bytes_out=out.numel())
+        return out
 
 
 class GFLinearWords:
@@ -130,9 +145,19 @@ class GFLinearWords:
         self._tables: dict = {}
 
     def __call__(self, words) -> torch.Tensor:
-        return gf_matmul_words(self.coding,
-                               to_device(words, self.device, torch.int32),
-                               self._tables)
+        w = to_device(words, self.device, torch.int32)
+        ln = DeviceProfiler.active().start(
+            "gf_encode", bytes_in=4 * w.numel(),
+            rows=int(w.shape[0]) if w.dim() else 0, backend="words")
+        try:
+            out = gf_matmul_words(self.coding, w, self._tables)
+        except Exception:
+            if ln is not None:
+                ln.abort()
+            raise
+        if ln is not None:
+            ln.finish(out=out, bytes_out=4 * out.numel())
+        return out
 
 
 class GFEncodeDigest:

@@ -11,7 +11,7 @@ encode to zero parity) and reversible for the digest
 **bit-identical** to the unbatched path (``ec.encode`` + host
 ``crc32c``).
 
-Four kinds of op share the machinery in two lanes:
+Six kinds of op share the machinery in three lanes:
 
 - the **write lane** — ``submit_encode`` (encode + digest) and
   ``submit_digest`` (a CRC-32C of a payload);
@@ -19,7 +19,16 @@ Four kinds of op share the machinery in two lanes:
   recovery) grouped per (code, erasure pattern, size bucket), one
   launch per group over the plan's stacked ``[k + p, k]`` matrix:
   through ``ResidentPlanes`` (``gf_expand`` + ``gf_planes``); and
-  ``submit_recheck`` (scrub parity re-encode) through ``GFLinear``.
+  ``submit_recheck`` (scrub parity re-encode) through ``GFLinear``;
+- the **compression lane** (``comp``) — ``submit_compress`` (inline
+  compression: the codec's device scan, K9 for ``rle``, over the whole
+  size-bucketed megabatch, then the host finalize of each member) and
+  ``submit_fingerprint`` (dedup: one K8 gear-hash launch over the
+  megabatch, the host cut walk on the hash-mask hits, then one K6
+  launch digesting every chunk of the flush).  Payloads above
+  ``comp_segment_bytes`` split into fixed segments that batch across
+  objects.  Its knobs (``comp_*``) default to the write lane's, its
+  stats carry the ``comp_`` prefix.
 
 Flush policy (as ceph_tpu's): ``max_bytes`` / ``max_ops`` trigger at
 submit; ``flush_ms == 0`` flushes every submit synchronously;
@@ -30,8 +39,14 @@ completion worker that waits on each event before reading — the next
 tick stages while earlier flights drain, and FIFO completion keeps
 per-PG ordering.
 
-Not carried over in this slice: the compression and fingerprint lanes,
-the mesh, the device profiler and the tracer.
+``profiler`` (a ``core.device_profiler.DeviceProfiler``) gets one
+``"megabatch"`` sample per launch group, tagged with its lane and op:
+dispatch ends after ``_stage_out`` queues the result copies, compute is
+the completion's wait at the flight's CUDA event.
+
+Not carried over: the mesh, the tracer, the ``on_lane_flush`` and
+``store_kick`` hooks of the OSD daemon (they come with the control
+plane).
 """
 
 from __future__ import annotations
@@ -93,30 +108,36 @@ class Completion:
 
 class _Op:
     __slots__ = ("kind", "key", "chunks", "payload", "length",
-                 "nbytes", "comp", "want", "passthrough")
+                 "nbytes", "comp", "want", "passthrough", "codec", "mode",
+                 "chunker")
 
     def __init__(self, kind, key, comp, length, nbytes, chunks=None,
-                 payload=None, want=None, passthrough=None):
-        self.kind = kind            # "encode"|"digest"|"recon"|"recheck"
+                 payload=None, want=None, passthrough=None, codec=None,
+                 mode=None, chunker=None):
+        self.kind = kind            # "encode"|"digest"|"recon"|"recheck"|
+        #                             "compress"|"fingerprint"
         self.key = key              # executable-identity group key
         self.comp = comp
         self.length = length        # true (unpadded) per-row length
         self.nbytes = nbytes
         self.chunks = chunks        # encode/recheck: [k, length];
         #                             recon: survivor stack [k, length]
-        self.payload = payload      # digest: bytes
+        self.payload = payload      # digest/compress/fingerprint: bytes
         self.want = want            # recon: frozenset of wanted ids
         self.passthrough = passthrough  # recon: {id: chunk} present+wanted
+        self.codec = codec          # compress: Codec instance
+        self.mode = mode            # compress: pool compression_mode
+        self.chunker = chunker      # fingerprint: Chunker instance
 
 
 class _Flight:
     """One launched group awaiting its fence."""
 
     __slots__ = ("kind", "ops", "out", "event", "length", "bucket",
-                 "reason", "plan")
+                 "reason", "ln", "plan", "spans", "chunk_len")
 
-    def __init__(self, kind, ops, out, event, length, bucket, reason,
-                 plan=None):
+    def __init__(self, kind, ops, out, event, length, bucket, reason, ln,
+                 plan=None, spans=None, chunk_len=0):
         self.kind = kind
         self.ops = ops
         self.out = out              # host tensors, valid after event
@@ -124,11 +145,17 @@ class _Flight:
         self.length = length        # bucket row length
         self.bucket = bucket        # padded row count
         self.reason = reason
+        self.ln = ln                # profiler launch (overlap) or None
         self.plan = plan            # recon: DecodePlan (row_of mapping)
+        self.spans = spans          # fingerprint: [(off, len), ...] per op
+        self.chunk_len = chunk_len  # fingerprint: padded chunk row length
 
 
 class BatchEngine:
     """Tick-accumulating megabatch launcher for one OSD's device ops."""
+
+    LANES = ("write", "recon", "comp")
+    _PREFIX = {"write": "", "recon": "recon_", "comp": "comp_"}
 
     def __init__(self, name: str = "", *, device=None, enabled: bool = True,
                  max_bytes: int = 8 << 20, max_ops: int = 64,
@@ -137,7 +164,12 @@ class BatchEngine:
                  recon_max_bytes: int | None = None,
                  recon_max_ops: int | None = None,
                  recon_flush_ms: float | None = None,
-                 bucket_floor: int = 32):
+                 comp_enabled: bool | None = None,
+                 comp_max_bytes: int | None = None,
+                 comp_max_ops: int | None = None,
+                 comp_flush_ms: float | None = None,
+                 comp_segment_bytes: int = 1 << 20,
+                 bucket_floor: int = 32, profiler=None):
         self.name = name
         self.device = resolve_device(device)
         self.enabled = bool(enabled)
@@ -153,13 +185,25 @@ class BatchEngine:
                               else int(recon_max_ops))
         self.recon_flush_ms = (self.flush_ms if recon_flush_ms is None
                                else float(recon_flush_ms))
+        # compression-lane knobs default to the write lane's values
+        self.comp_enabled = (self.enabled if comp_enabled is None
+                             else bool(comp_enabled))
+        self.comp_max_bytes = (self.max_bytes if comp_max_bytes
+                               is None else int(comp_max_bytes))
+        self.comp_max_ops = (self.max_ops if comp_max_ops is None
+                             else int(comp_max_ops))
+        self.comp_flush_ms = (self.flush_ms if comp_flush_ms is None
+                              else float(comp_flush_ms))
+        self.comp_segment_bytes = int(comp_segment_bytes)
         self.bucket_floor = int(bucket_floor)
+        self.profiler = profiler
         self._schedule = schedule   # schedule(delay_s, fn) -> token
         self._lock = threading.Lock()        # pending accumulators
         self._flush_lock = threading.Lock()  # serializes dispatch
-        self._pending: dict[str, list[_Op]] = {"write": [], "recon": []}
-        self._pending_bytes = {"write": 0, "recon": 0}
-        self._armed = {"write": False, "recon": False}
+        self._pending: dict[str, list[_Op]] = {
+            lane: [] for lane in self.LANES}
+        self._pending_bytes = {lane: 0 for lane in self.LANES}
+        self._armed = {lane: False for lane in self.LANES}
         self._fused: dict = {}               # code key → GFEncodeDigest
         self._rexec: dict = {}               # recheck key → GFLinear
         self._plan_cache: dict = {}          # DecodePlan per erasure set
@@ -330,6 +374,168 @@ class BatchEngine:
         """The exact pre-lane semantics — the bit-identity reference."""
         return ec.decode(set(want), chunks)
 
+    # -- compression lane --------------------------------------------------
+
+    def submit_compress(self, codec, payload, *, mode: str = "aggressive",
+                        callback=None) -> Completion:
+        """Queue an inline-compression pass; the completion's value is
+        ``(stored_bytes, header | None)``.  ``header is None`` means
+        pass-through: the payload did not shrink under an
+        ``aggressive`` mode and is stored verbatim (``force`` always
+        stores compressed).  The header (``{"algo", "len"}``, plus
+        ``{"seg", "segs"}`` on the segment path) is what the caller
+        persists so that reads can expand.
+
+        Payloads above ``comp_segment_bytes`` split into fixed segments
+        that batch across objects.  Batched and unbatched paths are
+        bit-identical: the device scan feeds the same host finalize the
+        single-op path uses."""
+        comp = Completion(callback)
+        self.stats["comp_ops_submitted"] += 1
+        try:
+            buf = bytes(payload)
+            if len(buf) > self.comp_segment_bytes > 0:
+                return self._submit_compress_segmented(codec, buf, mode,
+                                                       comp)
+            if (not self.enabled or not self.comp_enabled
+                    or self._stopped or not buf):
+                value = self._compress_unbatched(codec, buf, mode)
+            else:
+                self._enqueue(_Op("compress", ("compress", codec.name),
+                                  comp, length=len(buf), nbytes=len(buf),
+                                  payload=buf, codec=codec, mode=mode),
+                              lane="comp")
+                return comp
+        except Exception as e:      # noqa: BLE001 — poisoned payloads
+            self.stats["comp_ops_failed"] += 1
+            comp._fire(error=e)
+            return comp
+        comp._fire(value=value)
+        return comp
+
+    def _compress_unbatched(self, codec, buf: bytes, mode: str):
+        """Single-op host semantics — the bit-identity reference for the
+        lane (same codec, same pass-through rule)."""
+        return self._seal(codec, buf, mode, codec.compress(buf))
+
+    def _seal(self, codec, buf: bytes, mode: str, blob: bytes):
+        """``(stored bytes, header)`` of one payload from its compressed
+        ``blob``: the payload itself, header ``None``, when the blob did
+        not shrink under a mode other than ``force``."""
+        self.stats["comp_bytes_in"] += len(buf)
+        if mode != "force" and len(blob) >= len(buf):
+            self.stats["comp_passthrough"] += 1
+            self.stats["comp_bytes_out"] += len(buf)
+            return buf, None
+        self.stats["comp_bytes_out"] += len(blob)
+        return blob, {"algo": codec.name, "len": len(buf)}
+
+    def _submit_compress_segmented(self, codec, buf: bytes, mode: str,
+                                   comp: Completion) -> Completion:
+        """Segment path: fixed-size segments submitted as ordinary lane
+        members (they coalesce with other objects' segments), joined
+        back into one blob whose header carries each segment's stored
+        length and whether it passed through raw."""
+        seg = self.comp_segment_bytes
+        segs = [buf[i:i + seg] for i in range(0, len(buf), seg)]
+        results: list = [None] * len(segs)
+        state = {"left": len(segs), "err": None}
+        lock = threading.Lock()
+
+        def _child(i):
+            def cb(child):
+                with lock:
+                    if child.error is not None:
+                        state["err"] = state["err"] or child.error
+                    else:
+                        results[i] = child.value
+                    state["left"] -= 1
+                    if state["left"]:
+                        return
+                if state["err"] is not None:
+                    comp._fire(error=state["err"])
+                    return
+                clens = [[len(b), 1 if h is None else 0]
+                         for b, h in results]
+                total = sum(c for c, _raw in clens)
+                if mode != "force" and total >= len(buf):
+                    self.stats["comp_passthrough"] += 1
+                    comp._fire(value=(buf, None))
+                    return
+                blob = b"".join(b for b, _h in results)
+                comp._fire(value=(blob, {
+                    "algo": codec.name, "len": len(buf),
+                    "seg": seg, "segs": clens}))
+            return cb
+
+        for i, s in enumerate(segs):
+            self.submit_compress(codec, s, mode=mode, callback=_child(i))
+        return comp
+
+    def decompress(self, blob, header: dict) -> bytes:
+        """Expand a sealed blob back to its logical bytes (the read
+        half).  Host work, as in ``ceph_tpu``: RLE expansion is one
+        ``np.repeat``.  Counted under ``comp_decompress_bytes``."""
+        from ..compress.codec import CodecError
+        from ..compress.registry import create_codec
+        blob = bytes(blob)
+        codec = create_codec(header["algo"])
+        total = int(header["len"])
+        segs = header.get("segs")
+        if segs is None:
+            out = codec.decompress(blob, total)
+        else:
+            seg = int(header["seg"])
+            parts = []
+            off = 0
+            for i, (clen, raw) in enumerate(segs):
+                llen = min(seg, total - i * seg)
+                piece = blob[off:off + clen]
+                off += clen
+                parts.append(bytes(piece) if raw
+                             else codec.decompress(piece, llen))
+            out = b"".join(parts)
+        if len(out) != total:
+            raise CodecError(
+                f"decompress produced {len(out)} of {total} bytes")
+        self.stats["comp_decompress_bytes"] += len(out)
+        return out
+
+    def submit_fingerprint(self, chunker, payload, *,
+                           callback=None) -> Completion:
+        """Queue a dedup fingerprint pass; the completion's value is
+        ``[(off, length, fp), ...]``: content-defined chunk spans with
+        their fingerprints.  A flush makes one K8 gear-hash launch over
+        the size-bucketed megabatch and one K6 launch over every chunk
+        of the flush; the host path (lane off, empty payload) computes
+        the identical spans and fingerprints."""
+        comp = Completion(callback)
+        self.stats["comp_ops_submitted"] += 1
+        try:
+            buf = bytes(payload)
+            if (not self.enabled or not self.comp_enabled
+                    or self._stopped or not buf):
+                value = self._fingerprint_unbatched(chunker, buf)
+            else:
+                self._enqueue(_Op("fingerprint",
+                                  ("fingerprint",) + chunker.key(), comp,
+                                  length=len(buf), nbytes=len(buf),
+                                  payload=buf, chunker=chunker),
+                              lane="comp")
+                return comp
+        except Exception as e:      # noqa: BLE001
+            self.stats["comp_ops_failed"] += 1
+            comp._fire(error=e)
+            return comp
+        comp._fire(value=value)
+        return comp
+
+    def _fingerprint_unbatched(self, chunker, buf: bytes):
+        from ..compress.chunker import fingerprint
+        self.stats["comp_fingerprint_bytes"] += len(buf)
+        return [(off, ln, fingerprint(buf[off:off + ln]))
+                for off, ln in chunker.chunks(buf)]
+
     # -- accumulation ------------------------------------------------------
 
     def _lane_knobs(self, lane: str) -> tuple[int, int, float]:
@@ -337,6 +543,9 @@ class BatchEngine:
         if lane == "recon":
             return (self.recon_max_ops, self.recon_max_bytes,
                     self.recon_flush_ms)
+        if lane == "comp":
+            return (self.comp_max_ops, self.comp_max_bytes,
+                    self.comp_flush_ms)
         return self.max_ops, self.max_bytes, self.flush_ms
 
     def _enqueue(self, op: _Op, lane: str = "write"):
@@ -370,7 +579,7 @@ class BatchEngine:
         """Launch everything pending.  In immediate mode the flights
         complete inline; in batched mode they go to the FIFO
         completion worker.  ``lane`` limits the flush to one lane."""
-        lanes = ("write", "recon") if lane is None else (lane,)
+        lanes = self.LANES if lane is None else (lane,)
         return sum(self._flush_lane(ln, reason) for ln in lanes)
 
     def flush_sync(self, lane: str, reason: str = "manual") -> int:
@@ -394,8 +603,7 @@ class BatchEngine:
                               and not force_inline)
             if not pending:
                 return 0
-            prefix = "recon_" if lane == "recon" else ""
-            self.stats[f"{prefix}flush_{reason}"] += 1
+            self.stats[f"{self._PREFIX[lane]}flush_{reason}"] += 1
             flights = self._dispatch(pending, reason, lane)
             for fl in flights:
                 if use_worker:
@@ -452,21 +660,17 @@ class BatchEngine:
 
     def _dispatch(self, pending, reason, lane="write") -> list[_Flight]:
         flights = []
-        launches_key = "recon_launches" if lane == "recon" else "launches"
+        launches_key = f"{self._PREFIX[lane]}launches"
+        launch = {"encode": self._launch_encode,
+                  "digest": self._launch_digest,
+                  "recon": self._launch_reconstruct,
+                  "recheck": self._launch_recheck,
+                  "compress": self._launch_compress,
+                  "fingerprint": self._launch_fingerprint}
         for (key, bucket_len), ops in self._groups(pending).items():
             rows = _next_pow2(len(ops))
             try:
-                if key[0] == "encode":
-                    fl = self._launch_encode(key, ops, rows, bucket_len,
-                                             reason)
-                elif key[0] == "digest":
-                    fl = self._launch_digest(ops, rows, bucket_len, reason)
-                elif key[0] == "recon":
-                    fl = self._launch_reconstruct(key, ops, rows,
-                                                  bucket_len, reason)
-                else:
-                    fl = self._launch_recheck(key, ops, rows, bucket_len,
-                                              reason)
+                fl = launch[key[0]](key, ops, rows, bucket_len, reason)
             except Exception as e:  # noqa: BLE001 — one group's
                 # launch failure must not kill sibling groups
                 self._fail_group(ops, e)
@@ -474,6 +678,31 @@ class BatchEngine:
             flights.append(fl)
             self.stats[launches_key] += 1
         return flights
+
+    def _prof_start(self, ops, rows, staged_bytes, reason, op_kind,
+                    cache_hit, lane="write"):
+        if self.profiler is None:
+            return None
+        return self.profiler.start(
+            "megabatch", bytes_in=staged_bytes,
+            bytes_used=sum(o.nbytes for o in ops),
+            rows=rows, rows_used=len(ops), overlap=True,
+            members=len(ops), reason=reason, op=op_kind,
+            cache_hit=cache_hit, lane=lane)
+
+    @staticmethod
+    def _flight_out(ln, run):
+        """``run()`` → (host tensors, event) between the profiler's
+        start and its dispatch mark; an exception aborts the launch."""
+        try:
+            out = run()
+        except Exception:
+            if ln is not None:
+                ln.abort()
+            raise
+        if ln is not None:
+            ln.dispatched()
+        return out
 
     def _stage_in(self, batch: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(batch).to(self.device)
@@ -498,40 +727,57 @@ class BatchEngine:
             batch[i, :, :op.length] = op.chunks
         return batch
 
+    @staticmethod
+    def _payload_rows(ops, rows, bucket_len) -> np.ndarray:
+        batch = np.zeros((rows, bucket_len), dtype=np.uint8)
+        for i, op in enumerate(ops):
+            batch[i, :op.length] = np.frombuffer(op.payload, np.uint8)
+        return batch
+
     def _launch_encode(self, key, ops, rows, bucket_len,
                        reason) -> _Flight:
         from ..ops.gf_torch import GFEncodeDigest
         _kind, k, m, mat = key
         fused = self._fused.get(key)
+        cache_hit = fused is not None
         if fused is None:
             fused = self._fused[key] = GFEncodeDigest(
                 np.frombuffer(mat, dtype=np.uint8).reshape(m, k),
                 device=self.device)
-        parity, crcs = fused(self._stage_in(
-            self._batch(ops, rows, k, bucket_len)))
-        out, event = self._stage_out(parity, crcs)
-        return _Flight("encode", ops, out, event, bucket_len, rows, reason)
+        batch = self._batch(ops, rows, k, bucket_len)
+        ln = self._prof_start(ops, rows, batch.nbytes, reason, "encode",
+                              cache_hit)
+        out, event = self._flight_out(ln, lambda: self._stage_out(
+            *fused(self._stage_in(batch))))
+        return _Flight("encode", ops, out, event, bucket_len, rows, reason,
+                       ln)
 
-    def _launch_digest(self, ops, rows, bucket_len, reason) -> _Flight:
+    def _launch_digest(self, _key, ops, rows, bucket_len,
+                       reason) -> _Flight:
         from ..scrub.crc32c import crc32c_rows
-        batch = np.zeros((rows, bucket_len), dtype=np.uint8)
-        for i, op in enumerate(ops):
-            batch[i, :op.length] = np.frombuffer(op.payload, np.uint8)
-        out, event = self._stage_out(crc32c_rows(self._stage_in(batch)))
+        batch = self._payload_rows(ops, rows, bucket_len)
+        ln = self._prof_start(ops, rows, batch.nbytes, reason, "digest",
+                              True)
+        out, event = self._flight_out(ln, lambda: self._stage_out(
+            crc32c_rows(self._stage_in(batch))))
         return _Flight("digest", ops, out[0], event, bucket_len, rows,
-                       reason)
+                       reason, ln)
 
     def _launch_reconstruct(self, key, ops, rows, bucket_len,
                             reason) -> _Flight:
         from ..parallel.decode_plan import decode_plan
         _kind, k, m, mat, erasures = key
         coding = np.frombuffer(mat, dtype=np.uint8).reshape(m, k)
+        cache_hit = len(self._plan_cache)
         plan = decode_plan(coding, k, m, erasures, cache=self._plan_cache)
-        rec = self._run_reconstruct(
-            plan, self._stage_in(self._batch(ops, rows, k, bucket_len)))
-        out, event = self._stage_out(rec)
+        cache_hit = cache_hit == len(self._plan_cache)
+        batch = self._batch(ops, rows, k, bucket_len)
+        ln = self._prof_start(ops, rows, batch.nbytes, reason, "recon",
+                              cache_hit, lane="recon")
+        out, event = self._flight_out(ln, lambda: self._stage_out(
+            self._run_reconstruct(plan, self._stage_in(batch))))
         return _Flight("recon", ops, out[0], event, bucket_len, rows,
-                       reason, plan=plan)
+                       reason, ln, plan=plan)
 
     def _run_reconstruct(self, plan, batch: torch.Tensor) -> torch.Tensor:
         """One launch group for a reconstruct group: resident planes
@@ -546,34 +792,121 @@ class BatchEngine:
                         reason) -> _Flight:
         _kind, k, m, mat = key
         prog = self._rexec.get(key)
+        cache_hit = prog is not None
         if prog is None:
             from ..ops.gf_torch import GFLinear
             prog = self._rexec[key] = GFLinear(
                 np.frombuffer(mat, dtype=np.uint8).reshape(m, k),
                 device=self.device)
-        out, event = self._stage_out(prog(self._stage_in(
-            self._batch(ops, rows, k, bucket_len))))
+        batch = self._batch(ops, rows, k, bucket_len)
+        ln = self._prof_start(ops, rows, batch.nbytes, reason, "recheck",
+                              cache_hit, lane="recon")
+        out, event = self._flight_out(ln, lambda: self._stage_out(
+            prog(self._stage_in(batch))))
         return _Flight("recheck", ops, out[0], event, bucket_len, rows,
-                       reason)
+                       reason, ln)
+
+    def _launch_compress(self, _key, ops, rows, bucket_len,
+                         reason) -> _Flight:
+        """Stage one codec's ops into a pow2 megabatch and run the
+        codec's device scan (``scan_batch``, K9 for ``rle``); a host-only
+        codec (zlib) flies with no output and finalizes every member in
+        ``_complete_comp``, sharing the lane's flush cadence and stats."""
+        scan = ops[0].codec.scan_batch
+        if scan is None:
+            ln = self._prof_start(ops, rows, sum(op.length for op in ops),
+                                  reason, "compress", True, lane="comp")
+            out, event = self._flight_out(ln, lambda: ((None,), None))
+        else:
+            batch = self._payload_rows(ops, rows, bucket_len)
+            ln = self._prof_start(ops, rows, batch.nbytes, reason,
+                                  "compress", True, lane="comp")
+            out, event = self._flight_out(ln, lambda: self._stage_out(
+                scan(self._stage_in(batch))))
+        return _Flight("compress", ops, out[0], event, bucket_len, rows,
+                       reason, ln)
+
+    def _launch_fingerprint(self, _key, ops, rows, bucket_len,
+                            reason) -> _Flight:
+        """Two launches a flush: K8's gear hashes over the pow2
+        megabatch, of which only the rows' hits of the chunker's mask
+        (``(h & mask) == 0``, a few per chunk) come back to the host;
+        then, after the host walks them into bounded chunk spans
+        (``Chunker.cuts_from_candidates``, the spans of
+        ``cuts_from_hashes`` on the full hashes), one K6 launch digests
+        every chunk of the flush, gathered from the staged megabatch
+        into rows zero-padded at the back.  The flight carries the
+        digests; ``_complete_comp`` unpads them."""
+        from ..compress.chunker import chunk_bucket, gather_chunks
+        from ..scrub.crc32c import crc32c_rows
+        chunker = ops[0].chunker
+        batch = self._payload_rows(ops, rows, bucket_len)
+        ln = self._prof_start(ops, rows, batch.nbytes, reason,
+                              "fingerprint", True, lane="comp")
+        spans = []
+
+        def run():
+            staged = self._stage_in(batch)
+            hits = torch.nonzero((chunker.hash_batch(staged)
+                                  & int(chunker.mask)) == 0).cpu().numpy()
+            bounds = np.searchsorted(hits[:, 0], np.arange(len(ops) + 1))
+            owner, offs, lens = [], [], []
+            for i, op in enumerate(ops):
+                pos = hits[bounds[i]:bounds[i + 1], 1]
+                cuts = chunker.cuts_from_candidates(
+                    pos[pos < op.length] + 1, op.length)
+                ends = np.asarray(cuts, dtype=np.int64)
+                starts = np.concatenate([[0], ends[:-1]])
+                spans.append(list(zip(starts.tolist(),
+                                      (ends - starts).tolist())))
+                owner += [i] * len(cuts)
+                offs.append(starts)
+                lens.append(ends - starts)
+            offs, lens = np.concatenate(offs), np.concatenate(lens)
+            chunk_len = chunk_bucket(lens)
+            out, event = self._stage_out(crc32c_rows(gather_chunks(
+                staged, owner, offs, lens, chunk_len)))
+            return out, event, chunk_len
+
+        out, event, chunk_len = self._flight_out(ln, run)
+        return _Flight("fingerprint", ops, out[0], event, bucket_len, rows,
+                       reason, ln, spans=spans, chunk_len=chunk_len)
 
     # -- completion --------------------------------------------------------
 
-    def _complete(self, fl: _Flight):
-        from ..scrub.crc32c import crc32c_zero_unpad
-        parity = crcs = rec = None
+    def _fence(self, fl: _Flight) -> bool:
+        """Wait at the flight's event and close its profiler launch
+        (``compute`` is that wait); a launch that died fails every
+        member."""
         try:
             if fl.event is not None:
-                fl.event.synchronize()      # the fence
-            if fl.kind == "encode":
-                parity = fl.out[0].numpy()
-                crcs = fl.out[1].numpy().view(np.uint32)
-            elif fl.kind == "digest":
-                crcs = fl.out.numpy().view(np.uint32)
-            else:               # recon | recheck
-                rec = fl.out.numpy()
+                fl.event.synchronize()
         except Exception as e:      # noqa: BLE001 — launch died at the
-            self._fail_group(fl.ops, e)     # fence: fail every member
+            if fl.ln is not None:   # fence: fail every member
+                fl.ln.abort()
+            self._fail_group(fl.ops, e)
+            return False
+        if fl.ln is not None:
+            outs = fl.out if isinstance(fl.out, tuple) else (fl.out,)
+            fl.ln.finish(bytes_out=sum(t.numel() * t.element_size()
+                                       for t in outs if t is not None))
+        return True
+
+    def _complete(self, fl: _Flight):
+        from ..scrub.crc32c import crc32c_zero_unpad
+        if fl.kind in ("compress", "fingerprint"):
+            self._complete_comp(fl)
             return
+        if not self._fence(fl):
+            return
+        parity = crcs = rec = None
+        if fl.kind == "encode":
+            parity = fl.out[0].numpy()
+            crcs = fl.out[1].numpy().view(np.uint32)
+        elif fl.kind == "digest":
+            crcs = fl.out.numpy().view(np.uint32)
+        else:                   # recon | recheck
+            rec = fl.out.numpy()
         info = {"rows": fl.bucket, "members": len(fl.ops),
                 "row_len": fl.length, "reason": fl.reason}
         if rec is not None:
@@ -622,10 +955,60 @@ class BatchEngine:
                 # callback blowing up must not starve its siblings
                 self.stats["callback_errors"] += 1
 
+    def _complete_comp(self, fl: _Flight):
+        """Fence, then finalize each member of a compression-lane
+        flight on the host.  A member whose finalize raises fails
+        alone."""
+        from ..compress.chunker import fingerprints_from_padded
+        if not self._fence(fl):
+            return
+        scan = fl.out.numpy() if fl.out is not None else None
+        info = {"rows": fl.bucket, "members": len(fl.ops),
+                "row_len": fl.length, "reason": fl.reason, "lane": "comp"}
+        if fl.kind == "fingerprint":
+            # every chunk of the flight unpadded in one numpy pass
+            try:
+                fps = iter(fingerprints_from_padded(
+                    scan.view(np.uint32),
+                    [op.payload[off:off + ln]
+                     for op, spans in zip(fl.ops, fl.spans)
+                     for off, ln in spans], fl.chunk_len))
+            except Exception as e:  # noqa: BLE001 — fail the flight
+                self._fail_group(fl.ops, e)
+                return
+        for i, op in enumerate(fl.ops):
+            try:
+                if fl.kind == "compress":
+                    blob = (op.codec.compress(op.payload) if scan is None
+                            else op.codec.compress_from_scan(
+                                np.frombuffer(op.payload, np.uint8),
+                                op.length, scan[i]))
+                    value = self._seal(op.codec, op.payload, op.mode, blob)
+                else:
+                    value = [(off, ln, next(fps))
+                             for off, ln in fl.spans[i]]
+                    self.stats["comp_fingerprint_bytes"] += op.length
+            except Exception as e:  # noqa: BLE001 — poisoned member
+                self.stats["comp_ops_failed"] += 1
+                try:
+                    op.comp._fire(error=e)
+                except Exception:   # noqa: BLE001
+                    self.stats["callback_errors"] += 1
+                continue
+            op.comp.info = info
+            try:
+                op.comp._fire(value=value)
+                self.stats["comp_ops_completed"] += 1
+            except Exception:       # noqa: BLE001 — a member's
+                # callback blowing up must not starve its siblings
+                self.stats["callback_errors"] += 1
+
     def _fail_group(self, ops, err):
         for op in ops:
             self.stats["recon_ops_failed"
                        if op.kind in ("recon", "recheck")
+                       else "comp_ops_failed"
+                       if op.kind in ("compress", "fingerprint")
                        else "ops_failed"] += 1
             try:
                 op.comp._fire(error=err)

@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.device_profiler import DeviceProfiler
 from ..kernels import build
 from ..utils.device import resolve_device
 
@@ -108,21 +109,33 @@ def _shift_byte_matrix() -> list[int]:
 _A_COLS = _shift_byte_matrix()
 
 
+@functools.lru_cache(maxsize=None)
+def _power_cols(inverse: bool, bit: int) -> tuple:
+    """``A^(2^bit)``, or its inverse, as 32 columns: the squarings of
+    square-and-multiply, made once per process."""
+    if bit == 0:
+        return tuple(_a_inv_cols() if inverse else _A_COLS)
+    return tuple(_matrix_square(list(_power_cols(inverse, bit - 1))))
+
+
+def _apply_power(c: int, n: int, inverse: bool) -> int:
+    """``A^n`` (or ``A^-n``) times ``c``: one matrix-vector product per
+    set bit of ``n`` over the cached squarings."""
+    if n < 0:
+        raise ValueError("negative length")
+    bit = 0
+    while n:
+        if n & 1:
+            c = _matrix_times(_power_cols(inverse, bit), c)
+        n >>= 1
+        bit += 1
+    return c
+
+
 def crc32c_shift(crc: int, nbytes: int) -> int:
     """Apply ``A^nbytes`` (append `nbytes` zero bytes to the *raw*
     register) to a 32-bit value, by square-and-multiply."""
-    c = int(crc) & _MASK
-    n = int(nbytes)
-    if n < 0:
-        raise ValueError("negative length")
-    mat = _A_COLS
-    while n:
-        if n & 1:
-            c = _matrix_times(mat, c)
-        n >>= 1
-        if n:
-            mat = _matrix_square(mat)
-    return c
+    return _apply_power(int(crc) & _MASK, int(nbytes), False)
 
 
 def crc32c_combine(crc_a: int, crc_b: int, len_b: int) -> int:
@@ -167,18 +180,7 @@ def crc32c_unshift(crc: int, nbytes: int) -> int:
     """Inverse of :func:`crc32c_shift`: apply ``A^-nbytes`` (remove
     `nbytes` trailing zero bytes from the *raw* register), by
     square-and-multiply over the inverted shift matrix."""
-    c = int(crc) & _MASK
-    n = int(nbytes)
-    if n < 0:
-        raise ValueError("negative length")
-    mat = _a_inv_cols()
-    while n:
-        if n & 1:
-            c = _matrix_times(mat, c)
-        n >>= 1
-        if n:
-            mat = _matrix_square(mat)
-    return c
+    return _apply_power(int(crc) & _MASK, int(nbytes), True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,6 +204,47 @@ def crc32c_zero_unpad(crc: int, pad: int) -> int:
     if pad == 0:
         return int(crc) & _MASK
     return crc32c_unshift((int(crc) ^ crc32c_zeros(pad)) & _MASK, pad)
+
+
+@functools.lru_cache(maxsize=None)
+def _power_nibbles(inverse: bool, bit: int) -> np.ndarray:
+    """``_power_cols(inverse, bit)`` as [8, 16] uint32 nibble tables:
+    entry [j, v] is the matrix times ``v << 4j``."""
+    cols = np.asarray(_power_cols(inverse, bit), dtype=np.uint32)
+    v = np.arange(16)
+    return np.stack([np.bitwise_xor.reduce(
+        np.where(((v[:, None] >> np.arange(4)) & 1) == 1,
+                 cols[4 * j:4 * j + 4], 0), axis=1, dtype=np.uint32)
+        for j in range(8)])
+
+
+def _apply_powers(c: np.ndarray, n: np.ndarray, inverse: bool) -> np.ndarray:
+    """:func:`_apply_power` of every ``c[i]`` by its own ``n[i]``: one
+    masked pass of nibble-table lookups per bit of the largest ``n``."""
+    c = c.astype(np.uint32, copy=True)
+    for bit in range(int(n.max()).bit_length() if len(n) else 0):
+        sel = np.flatnonzero((n >> bit) & 1)
+        if len(sel):
+            tab, v = _power_nibbles(inverse, bit), c[sel]
+            out = np.zeros(len(sel), dtype=np.uint32)
+            for j in range(8):
+                out ^= tab[j, (v >> np.uint32(4 * j)) & np.uint32(15)]
+            c[sel] = out
+    return c
+
+
+def crc32c_zero_unpad_many(crcs, pads) -> np.ndarray:
+    """:func:`crc32c_zero_unpad` of every ``crcs[i]`` by ``pads[i]``, in
+    numpy: ``[n]`` uint32 digests of payloads zero-padded at the back →
+    ``[n]`` uint32 digests of the payloads."""
+    pads = np.asarray(pads, dtype=np.int64)
+    crcs = np.asarray(crcs, dtype=np.uint32)
+    if len(pads) and pads.min() < 0:
+        raise ValueError("negative length")
+    mask = np.uint32(_MASK)
+    zeros = _apply_powers(np.full(len(pads), mask), pads, False) ^ mask
+    zeros[pads == 0] = 0
+    return _apply_powers(crcs ^ zeros, pads, True)
 
 
 # ------------------------------------------------------- batch kernel
@@ -560,5 +603,24 @@ def crc32c_batch(data, seeds=None, device=None) -> np.ndarray:
     if seeds is not None:
         s = torch.from_numpy(np.ascontiguousarray(
             seeds, dtype=np.uint32).view(np.int32)).to(arr.device)
-    out = crc32c_rows(arr.to(torch.uint8), s)
-    return out.cpu().numpy().view(np.uint32)
+    misses = _table_misses()
+    ln = DeviceProfiler.active().start(
+        "crc32c", bytes_in=arr.numel(), rows=int(arr.shape[0]),
+        rows_used=int(arr.shape[0]))
+    try:
+        res = crc32c_rows(arr.to(torch.uint8), s).cpu().numpy().view(
+            np.uint32)
+    except Exception:
+        if ln is not None:
+            ln.abort()
+        raise
+    if ln is not None:
+        ln.finish(bytes_out=res.nbytes, cache_hit=_table_misses() == misses)
+    return res
+
+
+def _table_misses() -> int:
+    """Misses of the per-length operator caches (the plain version's
+    contribution matrix, the kernel's seed operator): unchanged across
+    a call when its length was seen before — the ``cache_hit`` tag."""
+    return _contrib.cache_info().misses + _seed_op.cache_info().misses

@@ -26,8 +26,10 @@ the ``rados list-inconsistent-obj`` shape.
 Unlike ceph_tpu's engine, a kernel or lane failure raises: nothing
 redoes the work elsewhere.  Not carried over yet: the
 ``CEPH_TPU_SCRUB_*`` environment reads (``mode`` and ``segment_bytes``
-are constructor arguments with the same defaults), the multi-device
-mesh and the device profiler's spans.
+are constructor arguments with the same defaults) and the
+multi-device mesh.  The device profiler's spans are ``crc_digest`` (one
+digest batch) and ``parity_recheck`` (one standalone re-encode batch),
+recorded on the profiler bound to the calling thread.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import itertools
 
 import numpy as np
 
+from ..core.device_profiler import DeviceProfiler
 from ..ec.interface import ECError
 from ..utils.device import resolve_device
 from .crc32c import crc32c, crc32c_batch, crc32c_combine
@@ -119,7 +122,16 @@ class ScrubEngine:
                 batch = np.empty((len(group), length), dtype=np.uint8)
                 for row, (_, b) in zip(batch, group):
                     row[:] = np.frombuffer(b, dtype=np.uint8)
-                crcs = crc32c_batch(batch, device=self.device)
+                ln = DeviceProfiler.active().start(
+                    "crc_digest", bytes_in=batch.nbytes, rows=len(group))
+                try:
+                    crcs = crc32c_batch(batch, device=self.device)
+                except Exception:
+                    if ln is not None:
+                        ln.abort()
+                    raise
+                if ln is not None:
+                    ln.finish(bytes_out=crcs.nbytes)
                 self.device_digest_bytes += length * len(group)
                 for (key, _), c in zip(group, crcs):
                     out[key] = int(c)
@@ -151,11 +163,20 @@ class ScrubEngine:
             data = np.stack([_stack(shards, range(k))
                              for _, shards in group])    # [B, k, chunk]
             self.parity_bytes += data.size
-            if getattr(ec, "engine", None) is not None:
-                parity = np.asarray(ec._encode_chunks(data))
-            else:
-                parity = np.stack([np.asarray(ec._encode_chunks(d))
-                                   for d in data])
+            ln = DeviceProfiler.active().start(
+                "parity_recheck", bytes_in=data.nbytes, rows=len(group))
+            try:
+                if getattr(ec, "engine", None) is not None:
+                    parity = np.asarray(ec._encode_chunks(data))
+                else:
+                    parity = np.stack([np.asarray(ec._encode_chunks(d))
+                                       for d in data])
+            except Exception:
+                if ln is not None:
+                    ln.abort()
+                raise
+            if ln is not None:
+                ln.finish(bytes_out=parity.nbytes)
             for (oid, shards), par in zip(group, parity):
                 out[oid] = not np.array_equal(
                     par, _stack(shards, range(k, k + ec.m)))

@@ -8,11 +8,12 @@ one, or without the package beside it, it exits non-zero and prints no
 result.  Phases (any failure exits non-zero; each prints its wall
 time):
 
-1. build the seven CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
+1. build the nine CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
    and print the ``-Xptxas -v`` registers and spills of ``gf_words``,
-   ``gf_bytes``, ``gf_planes``, ``crc32c_batch``, ``gf2_packets`` and
-   ``crush_straw2``, and the instructions of one item of
-   ``crush_straw2``'s loop by pipe, read from its SASS (``cuobjdump``);
+   ``gf_bytes``, ``gf_planes``, ``crc32c_batch``, ``gf2_packets``,
+   ``crush_straw2``, ``gear_hash`` and ``run_starts``, and the
+   instructions of one item of ``crush_straw2``'s loop by pipe, read
+   from its SASS (``cuobjdump``);
 2. hold each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge shapes (odd lengths; for
    ``gf_words`` and ``gf_planes`` rows beyond their register tiles, word
@@ -24,7 +25,11 @@ time):
    of ``gf2_packets``; ``crush_straw2`` (K7) at the host level of the
    4096-OSD map ([1 Mi lanes, 64 items]) and at edge shapes (buckets of
    1, 3 and 65 items, an all-zero bucket, 3 weight sets, lane counts off
-   the block, [131072, 64]);
+   the block, [131072, 64]); ``gear_hash`` (K8) and ``run_starts`` (K9)
+   at the comp lane's flush ([64, 1 MiB], a row of leading zero bytes)
+   and at edge shapes (L 1/31/32/33/4097, rows 1 and 3, views off the
+   16-byte boundary); ``crc32c_batch`` at the fingerprint lane's launch
+   ([16384, 16384]);
 3. drive the main path at full width, launch counts set to 0 first and
    read after each phase:
    - ``ec_bench``: encode and decode sweep (EC pool k=8 m=3
@@ -46,6 +51,15 @@ time):
      of 16 MiB (segmented), the parity recheck of the 64 stripes with
      two of them corrupted (through the recovery engine's
      ``flush_sync`` and standalone), and culprit isolation;
+   - comp (``bench.py::_efficiency_leg``'s sizes): 64 objects of 1 MiB
+     through the rle codec (7 of 8 run-structured, 1 of 8 random), one
+     K9 launch; 16 objects of 4 MiB through the segment path; a zlib
+     pass; every blob expanded and held against a disabled engine,
+     pass-throughs, ratio > 1.5; ``[comp]`` GB/s (host clock);
+   - fingerprint: 16 random 1 MiB blocks written 4 times each, one flush
+     (one K8 launch, one K6 launch over every chunk); spans against the
+     host chunker, dedup ratio exactly 4, 256 sampled fingerprints
+     against the host's; ``[fingerprint]`` MB/s (host clock);
    - crush: BASELINE row 4's map (4096 OSDs, 64 hosts x 64) with 5% of
      the OSDs out and 5% at half weight; 1 Mi PGs through the replicated
      rule (``chooseleaf_firstn host``, size 3) and an EC pool's
@@ -55,6 +69,10 @@ time):
      parallel); then ``osdmaptool --createsimple 4096`` and
      ``--test-map-pgs --require-batched`` (262144 PGs), its PG count and
      engine checked; ``[crush]`` lines give PGs/s (host clock);
+   - crushtool: ``--build`` of 4096 OSDs in hosts of 64, ``--test
+     --num-rep 3 --show-statistics`` over 1 Mi inputs on the card
+     (engine ``batched (cuda)``), and ``--show-mappings`` of 1024 inputs
+     equal line for line to ``--scalar`` (8 host processes);
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -69,8 +87,13 @@ time):
    shapes, ``crush_straw2`` at the host level's launch shape (its
    operations bound from the SASS count of phase 1: the most loaded of
    issue and the pipes, at the card's SM count and maximum SM clock);
-   print one
-   ``kernels`` JSON line (``crc32c_batch``'s ``ms`` is
+   ``gear_hash`` and ``run_starts`` at [64, 1 MiB] (``run_starts``
+   beside the one PyTorch call ``torch.ne(x[:, 1:], x[:, :-1])``); then
+   ``[profile]`` lines: per lane (write, recon, comp, fingerprint) and for
+   the crush mappings, the device profiler's launches, dispatch, compute
+   (the host's wait at the CUDA events) and gap against the lane's wall,
+   and a device-busy estimate (every launch at its kernel's graph-timed
+   ms); print one ``kernels`` JSON line (``crc32c_batch``'s ``ms`` is
    its cold time, ``ms_warm`` the graph time of one held input),
    then the card's name and power limit, and last
    ``{"ok": true, "device": ...}``.
@@ -130,6 +153,14 @@ CRUSH_HOSTS, CRUSH_PER_HOST = 64, 64    # BASELINE row 4: 4096 OSDs
 CRUSH_PGS, CRUSH_SAMPLE = 1 << 20, 1024
 CRUSH_EC_WIDTH = 11                     # an EC pool's k + m (8 + 3)
 CRUSH_NONE = -0x7FFFFFFF
+COMP_OBJ, COMP_N = 1 << 20, 64          # bench.py::_efficiency_leg (chip)
+COMP_BIG, COMP_N_BIG = 4 << 20, 16      # the segment path: 64 x 1 MiB
+FP_BLOCKS, FP_COPIES = 16, 4            # distinct 1 MiB blocks, copies
+FP_AVG, FP_SAMPLE = 4096, 256           # chunker average, sampled fps
+FP_CHUNK_ROWS, FP_CHUNK_LEN = 16384, 16384  # K6 at the fingerprint launch
+CT_OSDS, CT_PGS, CT_MAPPINGS = 4096, 1 << 20, 1024  # crushtool --test
+EDGE_LENGTHS, EDGE_ROWS = (1, 31, 32, 33, 4097), (1, 3)   # K8 / K9 edges
+INT_OPS_PER_SM = 64                     # int32 lanes per SM and clock
 
 
 def fail(msg: str):
@@ -219,11 +250,13 @@ def straw2_lanes(torch, dev, rng, rows, n, positions):
 
 
 def crush_phase(dev, rng, build, hosts: int, per_host: int, n_pgs: int,
-                n_sample: int):
+                n_sample: int, profiler) -> tuple[float, int]:
     """Map ``n_pgs`` PGs on the ``hosts`` x ``per_host`` OSD map through
-    the replicated and the EC rule on ``dev``, each held against the
-    plain version and ``do_rule``, then run ``osdmaptool
-    --createsimple`` and ``--test-map-pgs`` on it."""
+    the replicated and the EC rule on ``dev`` (the two mappings recorded
+    by ``profiler``), each held against the plain version and
+    ``do_rule``, then run ``osdmaptool --createsimple`` and
+    ``--test-map-pgs`` on it.  Returns the two mappings' wall seconds
+    and their K7 launches."""
     import torch
     from ceph_tpu_torch.crush import straw2 as K7
     from ceph_tpu_torch.crush.map import build_hierarchy
@@ -244,14 +277,18 @@ def crush_phase(dev, rng, build, hosts: int, per_host: int, n_pgs: int,
     maps = {name: build_hierarchy(1, hosts, per_host, rule=name)
             for _label, name, _w in rules}
     got = {}
+    mapped_s, mapped_k7 = 0.0, 0
     for label, name, width in rules:
         mapper = BatchMapper(maps[name], 0, result_max=width, device=dev)
         before = build.counts()["crush_straw2"]
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        got[name] = mapper(pgs, crush_rw)
+        with profiler.bind():
+            got[name] = mapper(pgs, crush_rw)
         dt = time.perf_counter() - t0
+        mapped_s += dt
         k7_launches = build.counts()["crush_straw2"] - before
+        mapped_k7 += k7_launches
         if k7_launches <= 0:
             fail(f"crush {label}: K7 was not launched")
         log(f"[crush] {label}: {n_pgs} PGs on {n_osd} OSDs in "
@@ -324,6 +361,201 @@ def crush_phase(dev, rng, build, hosts: int, per_host: int, n_pgs: int,
         f"slots, engine batched ({dev.type}); "
         f"{[ln for ln in report if ln.startswith('mapped ')][0]}; "
         f"{pool.pg_num / dt:,.0f} PGs/s with the report (host clock)")
+    return mapped_s, mapped_k7
+
+
+def comp_payloads(rng, n: int, size: int) -> list[bytes]:
+    """bench.py::_efficiency_leg's mix: 7 of 8 run-structured (runs of
+    16-127 bytes, device logs and zero pages), 1 of 8 random (must pass
+    through)."""
+    out = []
+    for i in range(n):
+        if i % 8 == 7:
+            out.append(rng.integers(0, 256, size, np.uint8).tobytes())
+        else:
+            run = int(rng.integers(16, 128))
+            vals = rng.integers(0, 256, size // run + 1, np.uint8)
+            out.append(np.repeat(vals, run)[:size].tobytes())
+    return out
+
+
+def comp_phase(dev, n_obj: int, obj: int, n_big: int, big: int,
+               profiler) -> dict:
+    """The comp lane's compress path on ``dev``: ``n_obj`` objects of
+    ``obj`` bytes through the rle codec (one K9 launch when they fill
+    ``max_ops``), ``n_big`` objects of ``big`` bytes through the segment
+    path, and one zlib pass (host codec, no launch); every result held
+    against a disabled engine's and expanded back to its payload."""
+    from ceph_tpu_torch.compress.registry import create_codec
+    from ceph_tpu_torch.osd.batch_engine import BatchEngine
+    rng = np.random.default_rng(19)
+    payloads = comp_payloads(rng, n_obj, obj)
+    bigs = comp_payloads(rng, n_big, big)
+    rle, zlib_codec = create_codec("rle"), create_codec("zlib")
+    # bench.py's engine: no deadline timer, so the lane flushes when
+    # max_ops members have come (one launch of all of them) or at drain
+    eng = BatchEngine("comp", device=dev, flush_ms=2.0, max_ops=n_obj,
+                      max_bytes=n_obj * obj, comp_segment_bytes=obj,
+                      profiler=profiler)
+    eng.submit_compress(rle, payloads[0])           # warm the bucket
+    eng.drain()
+    eng.stats.clear()
+    profiler.reset()
+    t0 = time.perf_counter()
+    comps = [eng.submit_compress(rle, p) for p in payloads]
+    eng.drain()
+    wall = time.perf_counter() - t0
+    stats = dict(eng.stats)
+    profile = profiler.aggregate()["totals"]
+    seg = [eng.submit_compress(rle, p) for p in bigs]
+    eng.drain()
+    zc = [eng.submit_compress(zlib_codec, p) for p in payloads]
+    eng.drain()
+    off = BatchEngine("comp-off", device=dev, enabled=False,
+                      comp_segment_bytes=obj)
+    results = {}
+    for label, cs, ps, codec in (("rle", comps, payloads, rle),
+                                 ("rle segmented", seg, bigs, rle),
+                                 ("zlib", zc, payloads, zlib_codec)):
+        got = [c.result(timeout=600) for c in cs]
+        for (blob, hdr), p in zip(got, ps):
+            if (bytes(blob) if hdr is None else eng.decompress(blob, hdr)) \
+                    != p:
+                fail(f"comp {label}: a sealed blob does not expand to its "
+                     f"payload")
+        if got != [off.submit_compress(codec, p).result() for p in ps]:
+            fail(f"comp {label}: results differ from the disabled engine")
+        results[label] = got
+    passthrough = sum(hdr is None for _b, hdr in results["rle"])
+    ratio = stats["comp_bytes_in"] / max(1, stats["comp_bytes_out"])
+    if passthrough < n_obj // 8:
+        fail(f"comp: {passthrough} pass-throughs, want >= {n_obj // 8}")
+    if ratio <= 1.5:
+        fail(f"comp: ratio {ratio:.3f} <= 1.5")
+    segs = [hdr for _b, hdr in results["rle segmented"] if hdr]
+    eng.stop()
+    off.stop()
+    return {"wall_s": wall, "GBps": n_obj * obj / wall / 1e9,
+            "profile": profile, "ratio": ratio, "passthrough": passthrough,
+            "launches": stats.get("comp_launches", 0),
+            "segmented": len(segs),
+            "segments": sum(len(h["segs"]) for h in segs)}
+
+
+def fingerprint_phase(dev, n_blocks: int, copies: int, size: int, avg: int,
+                      n_sample: int, profiler) -> dict:
+    """The comp lane's fingerprint path on ``dev``: ``n_blocks`` random
+    blocks of ``size`` bytes, each written ``copies`` times in a shuffled
+    order (backup and VM-image copies into a dedup pool), in one flush;
+    spans held against the host chunker, the dedup ratio against
+    ``copies``, sampled fingerprints against the host ``fingerprint``."""
+    from ceph_tpu_torch.compress.chunker import Chunker, fingerprint
+    from ceph_tpu_torch.osd.batch_engine import BatchEngine
+    rng = np.random.default_rng(23)
+    blocks = [rng.integers(0, 256, size, np.uint8).tobytes()
+              for _ in range(n_blocks)]
+    order = list(range(n_blocks)) * copies
+    rng.shuffle(order)
+    chunker = Chunker(avg_size=avg)
+    n = len(order)
+    eng = BatchEngine("fingerprint", device=dev, flush_ms=2.0, max_ops=n,
+                      max_bytes=n * size, profiler=profiler)
+    t0 = time.perf_counter()
+    comps = [eng.submit_fingerprint(chunker, blocks[i]) for i in order]
+    eng.drain()
+    wall = time.perf_counter() - t0
+    profile = profiler.aggregate()["totals"]
+    spans = [c.result(timeout=600) for c in comps]
+    host = {}
+    for b, got in zip(order, spans):
+        if b not in host:
+            host[b] = chunker.chunks(blocks[b])
+        if [(o, ln) for o, ln, _f in got] != host[b]:
+            fail("fingerprint: spans differ from the host Chunker.chunks")
+        if sum(ln for _o, ln, _f in got) != size:
+            fail("fingerprint: spans do not tile their object")
+    uniq = {}
+    for got in spans:
+        for _o, ln, fp in got:
+            uniq.setdefault(fp, ln)
+    referenced = sum(ln for got in spans for _o, ln, _f in got)
+    if referenced != copies * sum(uniq.values()):
+        fail(f"fingerprint: dedup ratio "
+             f"{referenced / sum(uniq.values()):.4f} != {copies}")
+    flat = [(b, o, ln, fp) for b, got in zip(order, spans)
+            for o, ln, fp in got]
+    for j in rng.choice(len(flat), size=min(n_sample, len(flat)),
+                        replace=False):
+        b, o, ln, fp = flat[j]
+        if fingerprint(blocks[b][o:o + ln]) != fp:
+            fail("fingerprint: a lane fingerprint differs from the host's")
+    stats = dict(eng.stats)
+    eng.stop()
+    return {"wall_s": wall, "MBps": n * size / wall / 1e6, "profile": profile,
+            "chunks": len(flat), "unique": len(uniq),
+            "dedup_ratio": referenced / sum(uniq.values()),
+            "launches": stats.get("comp_launches", 0)}
+
+
+def crushtool_phase(dev, n_osd: int, n_pgs: int, n_mappings: int) -> dict:
+    """``crushtool --build`` (4096 OSDs, hosts of 64 under one straw2
+    root), ``--test --show-statistics`` over ``n_pgs`` inputs on ``dev``,
+    and ``--show-mappings`` of the first ``n_mappings`` on ``dev``
+    against ``--scalar`` (in 8 host processes, each a slice of x)."""
+    from ceph_tpu_torch.tools import crushtool
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        mapf = os.path.join(tmp, "crush.json")
+        if crushtool.main(["--build", "--num-osds", str(n_osd), "host",
+                           "straw2", "64", "root", "straw2", "0", "-o",
+                           mapf]):
+            fail("crushtool --build failed")
+        test = ["-i", mapf, "--test", "--num-rep", "3"]
+        workers = max(1, min(8, os.cpu_count() or 1))
+        bounds = np.linspace(0, n_mappings, workers + 1).astype(int)
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.crushtool", *test,
+             "--min-x", str(lo), "--max-x", str(hi - 1), "--show-mappings",
+             "--scalar"], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for lo, hi in zip(bounds[:-1], bounds[1:])]
+        try:
+            runs = {}
+            for label, args in (
+                    ("statistics", ["--min-x", "0", "--max-x",
+                                    str(n_pgs - 1), "--show-statistics"]),
+                    ("mappings", ["--min-x", "0", "--max-x",
+                                  str(n_mappings - 1), "--show-mappings"])):
+                out, err = io.StringIO(), io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out), \
+                        contextlib.redirect_stderr(err):
+                    rc = crushtool.main(test + args + [
+                        "--require-batched", "--device", dev.type])
+                runs[label] = (rc, out.getvalue(), err.getvalue(),
+                               time.perf_counter() - t0)
+            scalar = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for label, (rc, _out, err, _dt) in runs.items():
+        if rc:
+            fail(f"crushtool --test --show-{label} exited {rc}: {err[-400:]}")
+        if f"crushtool: engine: batched ({dev.type})" not in err:
+            fail(f"crushtool --show-{label} did not name the batched "
+                 f"mapper: {err[-400:]}")
+    if any(p.returncode for p in procs):
+        fail(f"crushtool --scalar failed: {scalar[0][1][-400:]}")
+    stats = runs["statistics"][1].splitlines()
+    counted = sum(int(ln.split("\t")[1].split("/")[0]) for ln in stats)
+    if counted != n_pgs or not stats:
+        fail(f"crushtool --show-statistics counts {counted} of {n_pgs}")
+    if runs["mappings"][1] != "".join(out for out, _err in scalar):
+        fail("crushtool --show-mappings differs from --scalar")
+    return {"stats": stats, "seconds": runs["statistics"][3],
+            "mappings_s": runs["mappings"][3], "workers": workers}
 
 
 def time_plain(torch, fn, iters: int = 2) -> float:
@@ -437,6 +669,9 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a GPU")
     try:
+        from ceph_tpu_torch.compress import chunker as CH
+        from ceph_tpu_torch.compress import codec as CO
+        from ceph_tpu_torch.core.device_profiler import DeviceProfiler
         from ceph_tpu_torch.kernels import build, sass
         from ceph_tpu_torch.crush import straw2 as K7
         from ceph_tpu_torch.crush.map import build_hierarchy
@@ -447,7 +682,7 @@ def main():
         from ceph_tpu_torch.ops import rs
         from ceph_tpu_torch.ops import gf_words as W
         from ceph_tpu_torch.ops.gf_torch import GFLinear
-        from ceph_tpu_torch.osd.batch_engine import BatchEngine
+        from ceph_tpu_torch.osd.batch_engine import BatchEngine, _Op
         from ceph_tpu_torch.parallel.decode_plan import decode_plan
         from ceph_tpu_torch.scrub import crc32c as C
         from ceph_tpu_torch.scrub import engine as S
@@ -477,7 +712,7 @@ def main():
     lib_path = build.build(verbose=True)
     build.library()
     for stem in ("gf_words", "gf_bytes", "gf_planes", "crc32c_batch",
-                 "gf2_packets", "crush_straw2"):
+                 "gf2_packets", "crush_straw2", "gear_hash", "run_starts"):
         for line in build.ptxas_report(stem):
             log(f"[ptxas] {stem}.cu {line}")
     # K7's operations bound: one item of its loop as compiled, on the
@@ -513,7 +748,13 @@ def main():
         "gf_expand": rand_u8(2, K, big),
         # write-lane flush: data rows of 2 stripes of 4 MiB objects
         "crc32c_batch": rand_u8(2 * K, big),
+        # comp lane flushes: 64 objects of 1 MiB (fingerprint and rle)
+        "gear_hash": rand_u8(FP_BLOCKS * FP_COPIES, COMP_OBJ),
+        "run_starts": rand_u8(COMP_N, COMP_OBJ),
     }
+    shapes["gear_hash"][0, :4096] = 0       # GEAR[0] != 0: a wrong pad shows
+    shapes["run_starts"][1] = torch.repeat_interleave(
+        shapes["run_starts"][1, :COMP_OBJ // 64], 64)   # runs of 64
     shapes["gf_planes"] = W.gf_expand_words(shapes["gf_expand"])
     # K4 leg: the same 1 MiB launch shape as gf_words, as bytes
     shapes["gf_bytes"] = shapes["gf_words"]
@@ -568,6 +809,10 @@ def main():
                                                      shapes["gf2_packets"])),
         "crush_straw2": (lambda: K7.straw2_choose(k7_tab, *k7_args),
                          lambda: K7.straw2_plain(k7_tab, *k7_args)),
+        "gear_hash": (lambda: CH.gear_hashes(shapes["gear_hash"]),
+                      lambda: CH.gear_hashes_plain(shapes["gear_hash"])),
+        "run_starts": (lambda: CO.run_starts(shapes["run_starts"]),
+                       lambda: CO.run_starts_plain(shapes["run_starts"])),
     }
     errs = {}
     for name, (kern, plain) in runs.items():
@@ -577,6 +822,7 @@ def main():
         log(f"[check] {name} {tuple(got.shape)} max_abs_err {errs[name]}")
         if errs[name]:
             fail(f"{name} disagrees with its plain version")
+    phase_done("kernel checks, main shapes")
     # edge shapes: odd lengths (pad paths), the square decode matrix
     dm = rs.decode_matrix(coding, K, list(ERASED))
     for n in (4, 100, 1000, 4096 + 36):
@@ -660,11 +906,31 @@ def main():
     log("[check] crush_straw2 edge shapes (buckets of 1/3/65 items, an "
         "all-zero bucket, 1-3 weight sets, 257/1000/4099 lanes, [131072, "
         "64]) equal the plain version")
+    phase_done("kernel checks, edge shapes")
+    # K8 and K9 at edge lengths (the byte path off multiples of 16, a
+    # warp's chunks across 480 bytes), rows of zeros first, unaligned
+    for nrows in EDGE_ROWS:
+        for n in EDGE_LENGTHS:
+            x = rand_u8(nrows * n + 1)
+            x[:40] = 0
+            for view in (x[:-1].view(nrows, n), x[1:].view(nrows, n)):
+                for name, kern, plain in (
+                        ("gear_hash", CH.gear_hashes, CH.gear_hashes_plain),
+                        ("run_starts", CO.run_starts, CO.run_starts_plain)):
+                    err = max_abs_err(torch, kern(view),
+                                      plain(view.contiguous()))
+                    if err:
+                        fail(f"{name} disagrees at [{nrows}, {n}]")
+    log(f"[check] gear_hash and run_starts edge shapes (L "
+        f"{'/'.join(map(str, EDGE_LENGTHS))}, rows "
+        f"{'/'.join(map(str, EDGE_ROWS))}, leading zero bytes, unaligned "
+        f"views) max_abs_err 0")
     # the write lane's other crc32c_batch launches (parity rows of a 4 MiB
     # flush; GFEncodeDigest's one launch over data and parity rows; data
     # rows of a 64 KiB-object flush) and the liberation (0, 1) decode
     par_rows = rand_u8(2 * M, big)
     small_rows = rand_u8(N_OBJ * K, OBJ_SMALL // K)
+    fp_rows = rand_u8(FP_CHUNK_ROWS, FP_CHUNK_LEN)
     seeds22 = torch.cat([seeds, seeds[:2 * M]])
     extra = {
         "crc32c_batch parity": (
@@ -683,6 +949,12 @@ def main():
             shapes["gf2_packets"],
             lambda x: BM.gf2_packets(lib_inv, x, tables),
             lambda x: BM.gf2_packets_plain(lib_inv, x)),
+        # the fingerprint lane's launch: every chunk of a 64 MiB flush,
+        # zero-padded at the back (the plain version in blocks of rows)
+        "crc32c_batch fingerprint": (
+            fp_rows, lambda x: C.crc32c_rows(x),
+            lambda x: torch.cat([C.crc32c_rows_plain(x[i:i + 1024])
+                                 for i in range(0, x.shape[0], 1024)])),
     }
     for label, (x, kern, plain) in extra.items():
         got, want = kern(x), plain(x)
@@ -695,7 +967,7 @@ def main():
         if err:
             fail(f"{label} disagrees with its plain version")
     torch.cuda.synchronize()
-    phase_done("kernel checks")
+    phase_done("kernel checks, other launch shapes")
 
     # -- 3. the main path, counted ------------------------------------------
     build.reset_counts()
@@ -784,28 +1056,53 @@ def main():
         t.start()
         return t
 
-    def engine(name):
+    # one device profiler a lane: the host's dispatch against its wait at
+    # each flight's CUDA event, and the idle gaps between launches
+    profs = {lane: DeviceProfiler(name=lane, enabled=True)
+             for lane in ("write", "recon", "comp", "fingerprint", "crush")}
+    walls, totals = {}, {}          # each lane's measured section
+
+    def engine(name, lane):
         # OSD option defaults (osd_batch_max_bytes 8 MiB, max_ops 64)
         # with a 5 ms window: the flight pipeline and completion worker
         return BatchEngine(name, max_bytes=8 << 20, max_ops=64,
-                           flush_ms=5.0, schedule=schedule)
+                           flush_ms=5.0, schedule=schedule,
+                           profiler=profs[lane])
 
     wdata = rng.integers(0, 256, size=(N_OBJ, OBJ_BIG), dtype=np.uint8)
     sdata = rng.integers(0, 256, size=(N_OBJ, OBJ_SMALL), dtype=np.uint8)
-    weng = engine("write")
+    weng = engine("write", "write")
     written = {}
+    walls["write"] = 0.0
     for label, objs in (("4MiB", wdata), ("64KiB", sdata)):
         t0 = time.perf_counter()
         comps = [weng.submit_encode(ec, o) for o in objs]
         written[label] = [c.result(timeout=600) for c in comps]
         dt = time.perf_counter() - t0
+        walls["write"] += dt
         log(f"[write] {N_OBJ} x {label}: {dt * 1e3:.1f} ms "
             f"({objs.nbytes / dt / 1e9:.3f} GB/s of client data, host "
             f"clock), stats {dict(weng.stats)}")
     weng.stop()
+    totals["write"] = profs["write"].aggregate()["totals"]
+    # the two host candidates of the write lane, for one 8 MiB flush of
+    # two 4 MiB objects: the numpy packing (_batch) and the pageable
+    # host-to-device copy (_stage_in)
+    flush_ops = [_Op("encode", None, None, OBJ_BIG // K, OBJ_BIG,
+                     chunks=ec.encode_prepare(o)) for o in wdata[:2]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        packed = weng._batch(flush_ops, 2, K, OBJ_BIG // K)
+    t1 = time.perf_counter()
+    for _ in range(10):
+        weng._stage_in(packed)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stage_ms = ((t1 - t0) * 100, (t2 - t1) * 100)
     close_phase("write_lane")
 
-    reng = engine("recovery")
+    reng = engine("recovery", "recon")
     t0 = time.perf_counter()
     comps = []
     for shards, _h in written["4MiB"]:
@@ -814,6 +1111,8 @@ def main():
         comps.append(reng.submit_reconstruct(ec, avail, want=set(LOST)))
     rebuilt = [c.result(timeout=600) for c in comps]
     dt = time.perf_counter() - t0
+    walls["recon"] = dt
+    totals["recon"] = profs["recon"].aggregate()["totals"]
     log(f"[recovery] {N_OBJ} x 4MiB, lost {LOST}: {dt * 1e3:.1f} ms, "
         f"stats {dict(reng.stats)}")
     chunks = [ec.encode_prepare(o) for o in wdata[:8]]
@@ -864,9 +1163,60 @@ def main():
         t.join(timeout=10)
     close_phase("deep_scrub")
 
-    crush_phase(dev, rng, build, CRUSH_HOSTS, CRUSH_PER_HOST, CRUSH_PGS,
-                CRUSH_SAMPLE)
+    comp = comp_phase(dev, COMP_N, COMP_OBJ, COMP_N_BIG, COMP_BIG,
+                      profs["comp"])
+    walls["comp"], totals["comp"] = comp["wall_s"], comp["profile"]
+    log(f"[comp] rle, {COMP_N} x {COMP_OBJ >> 20} MiB (7 of 8 runs of "
+        f"16-127 B, 1 of 8 random): {comp['GBps']:.3f} GB/s (host clock, "
+        f"{comp['wall_s'] * 1e3:.1f} ms), ratio {comp['ratio']:.3f}, "
+        f"{comp['passthrough']} pass-throughs, {comp['launches']} lane "
+        f"launch(es); {COMP_N_BIG} x {COMP_BIG >> 20} MiB segmented "
+        f"({comp['segments']} segments in {comp['segmented']} sealed "
+        f"objects); zlib pass on the host; every blob expands to its "
+        f"payload and equals a disabled engine's")
+    close_phase("comp")
+    if phase_counts["comp"]["run_starts"] <= 0:
+        fail("comp: run_starts was not launched")
+    log(f"[comp] run_starts launches {phase_counts['comp']['run_starts']} "
+        f"(one warm-up, one [{COMP_N}, {COMP_OBJ}] flush, one flush of "
+        f"the segments)")
+
+    fpr = fingerprint_phase(dev, FP_BLOCKS, FP_COPIES, COMP_OBJ, FP_AVG,
+                            FP_SAMPLE, profs["fingerprint"])
+    walls["fingerprint"], totals["fingerprint"] = fpr["wall_s"], \
+        fpr["profile"]
+    close_phase("fingerprint")
+    fp_counts = phase_counts["fingerprint"]
+    if fp_counts["gear_hash"] != 1 or fp_counts["crc32c_batch"] != 1:
+        fail(f"fingerprint: want one gear_hash and one crc32c_batch launch, "
+             f"got {fp_counts['gear_hash']} and {fp_counts['crc32c_batch']}")
+    log(f"[fingerprint] {FP_BLOCKS} blocks x {FP_COPIES} copies of "
+        f"{COMP_OBJ >> 20} MiB, chunker avg {FP_AVG}: {fpr['MBps']:.1f} MB/s "
+        f"(host clock, {fpr['wall_s'] * 1e3:.1f} ms), {fpr['chunks']} "
+        f"chunks ({fpr['unique']} unique), dedup ratio "
+        f"{fpr['dedup_ratio']:.2f}, gear_hash launches "
+        f"{fp_counts['gear_hash']}, crc32c_batch launches "
+        f"{fp_counts['crc32c_batch']}; spans equal the host chunker on all "
+        f"{FP_BLOCKS * FP_COPIES}, {FP_SAMPLE} sampled fingerprints equal "
+        f"the host's")
+
+    walls["crush"], crush_k7 = crush_phase(
+        dev, rng, build, CRUSH_HOSTS, CRUSH_PER_HOST, CRUSH_PGS,
+        CRUSH_SAMPLE, profs["crush"])
+    totals["crush"] = profs["crush"].aggregate()["totals"]
     close_phase("crush")
+
+    ct = crushtool_phase(dev, CT_OSDS, CT_PGS, CT_MAPPINGS)
+    close_phase("crushtool")
+    log(f"[crushtool] --build --num-osds {CT_OSDS} host straw2 64 root "
+        f"straw2 0; --test --num-rep 3 --max-x {CT_PGS - 1} "
+        f"--show-statistics on engine batched ({dev.type}) in "
+        f"{ct['seconds']:.3f} s ({CT_PGS / ct['seconds']:,.0f} x/s with "
+        f"its report, host clock, "
+        f"{phase_counts['crushtool']['crush_straw2']} crush_straw2 "
+        f"launches): {' | '.join(ct['stats'])}; --max-x {CT_MAPPINGS - 1} "
+        f"--show-mappings equals --scalar line for line ({ct['workers']} "
+        f"host processes)")
 
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
@@ -876,7 +1226,11 @@ def main():
             fail(f"kernel {name} was not launched on the main path")
     for phase, name in (("k4_leg", "gf_bytes"),
                         ("plugin_sweep", "gf2_packets"),
-                        ("crush", "crush_straw2")):
+                        ("crush", "crush_straw2"),
+                        ("comp", "run_starts"),
+                        ("fingerprint", "gear_hash"),
+                        ("fingerprint", "crc32c_batch"),
+                        ("crushtool", "crush_straw2")):
         if phase_counts[phase][name] <= 0:
             fail(f"kernel {name} was not launched on its phase {phase}")
 
@@ -984,6 +1338,20 @@ def main():
                     k7_tab.sizes, k7_tab.ln16)),
             k7_item_clocks * int((k7_tab.weights[0][k7_args[0]] > 0).sum()),
             sms * sm_hz),
+        # read a byte, write a word; a shared-memory table load, a shift
+        # and two adds an output, on the int32 lanes
+        "gear_hash": (5 * shapes["gear_hash"].numel(),
+                      4 * shapes["gear_hash"].numel(),
+                      INT_OPS_PER_SM * sms * sm_hz),
+        # read a byte, write a byte; one compare a byte
+        "run_starts": (2 * shapes["run_starts"].numel(),
+                       shapes["run_starts"].numel(),
+                       INT_OPS_PER_SM * sms * sm_hz),
+    }
+    rs_in = shapes["run_starts"]
+    library = {
+        # the one PyTorch call of the same compare (column 0 aside)
+        "run_starts": lambda: torch.ne(rs_in[:, 1:], rs_in[:, :-1]),
     }
     log(f"[clocks] before timing: {clocks()}")
     # crc32c_batch cold (graphs cycling through >= 96 MiB of distinct
@@ -1021,6 +1389,8 @@ def main():
         if name == "crc32c_batch":
             ms, lo, hi = cold["data rows of a 4 MiB flush"]
         plain_ms = time_plain(torch, plain)
+        lib_ms = (time_kernel(torch, library[name])[0]
+                  if name in library else None)
         b_ms, b_by = bound(*work[name])
         k = build.KERNELS[name]
         shape = (k7_shape if name == "crush_straw2" else words_in.shape
@@ -1029,12 +1399,14 @@ def main():
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": list(shape), "ms_min": lo, "ms_max": hi,
             "window_launches": n_win, "ms_warm": warm})
         log(f"[time] {name} {list(shape)}: {warm:.4f} ms median of 5 windows "
             f"of {n_win} launches (spread {warm_lo:.4f}-{warm_hi:.4f} ms; plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}) on {card}"
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}"
+            + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
+            + f") on {card}"
             + (f"; warm, against {ms:.4f} ms cold" if ms != warm else ""))
     # gf2_packets at the liberation (0, 1) decode shape: [64, 42, 24968]
     # in and out (64 MiB each way: no input stays in L2)
@@ -1064,6 +1436,29 @@ def main():
             f"wall per call on {card}")
     log(f"[clocks] after timing: {clocks()}")
     phase_done("timings")
+    # the host against the device, lane by lane: the profiler's dispatch
+    # (host time to enqueue, staging included), compute (the host's wait
+    # at the flights' CUDA events) and idle gaps, against the lane's wall
+    # time; the device-busy estimate counts every launch of the lane at
+    # its kernel's graph-timed ms at the main shapes above
+    kernel_ms = {e["name"]: e["ms_warm"] for e in entries}
+    for lane, phase in (("write", "write_lane"), ("recon", "recovery_lane"),
+                        ("comp", "comp"), ("fingerprint", "fingerprint"),
+                        ("crush", "crush")):
+        tot = totals[lane]
+        busy = sum(n * kernel_ms[k] for k, n in phase_counts[phase].items())
+        if lane == "crush":     # the two timed mappings' K7 launches only
+            busy = crush_k7 * kernel_ms["crush_straw2"]
+        wall_ms = walls[lane] * 1e3
+        log(f"[profile] {lane}: {tot['launches']} profiled launches, "
+            f"dispatch {tot['dispatch_s'] * 1e3:.1f} ms, compute "
+            f"{tot['compute_s'] * 1e3:.1f} ms, gap {tot['gap_s'] * 1e3:.1f} "
+            f"ms ({tot['gaps']} gaps), wall {wall_ms:.1f} ms; device busy "
+            f"<= {busy:.2f} ms ({busy / wall_ms:.2%} of the wall, idle "
+            f">= {1 - busy / wall_ms:.2%}) on {card}")
+    log(f"[profile] write lane, one flush of 2 x 4 MiB (host clock, mean "
+        f"of 10): _batch packing {stage_ms[0]:.3f} ms, _stage_in pageable "
+        f"host-to-device copy {stage_ms[1]:.3f} ms")
     log(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -317,3 +317,95 @@ def test_launch_counts_only_on_launch(dev):
     build.reset_counts()
     W.gf_matmul_bytes_plain(rs.reed_sol_van_matrix(4, 2), _u8(dev, 1, 4, 64))
     assert all(v == 0 for v in build.counts().values())
+
+
+def _zero_led(dev, rows, length, seed):
+    x = _u8(dev, rows, length, seed=seed)
+    x[0, :40] = 0               # GEAR[0] != 0 shows a wrong front pad
+    return x
+
+
+@pytest.mark.parametrize("rows,length", [
+    (64, 1 << 20), (1, 1), (3, 1), (1, 31), (3, 31), (1, 32), (3, 32),
+    (1, 33), (3, 33), (1, 4097), (3, 4097), (5, 480), (2, 961)])
+def test_gear_hash_matches_plain(dev, rows, length):
+    from ceph_tpu_torch.compress import chunker as CH
+    x = _zero_led(dev, rows, length, seed=length)
+    before = CH.GEAR_HASH.launches
+    assert torch.equal(CH.gear_hashes(x), CH.gear_hashes_plain(x))
+    assert CH.GEAR_HASH.launches == before + 1
+    # a view off the 16-byte boundary takes the byte path
+    view = _u8(dev, rows * length + 1, seed=rows)[1:].view(rows, length)
+    assert torch.equal(CH.gear_hashes(view), CH.gear_hashes_plain(view))
+
+
+@pytest.mark.parametrize("rows,length", [
+    (64, 1 << 20), (1, 1), (3, 1), (1, 31), (3, 31), (1, 32), (3, 32),
+    (1, 33), (3, 33), (1, 4097), (3, 4097)])
+def test_run_starts_matches_plain(dev, rows, length):
+    from ceph_tpu_torch.compress import codec as CO
+    x = _zero_led(dev, rows, length, seed=length)
+    x[-1] = int(x[-1, 0])       # one run the whole row
+    before = CO.RUN_STARTS.launches
+    assert torch.equal(CO.run_starts(x), CO.run_starts_plain(x))
+    assert CO.RUN_STARTS.launches == before + 1
+    view = _u8(dev, rows * length + 3, seed=rows)[3:].view(rows, length)
+    assert torch.equal(CO.run_starts(view), CO.run_starts_plain(view))
+
+
+def test_fingerprints_batch_on_the_card(dev):
+    from ceph_tpu_torch.compress import chunker as CH
+    rng = np.random.default_rng(4)
+    chunks = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in (1, 31, 32, 33, 1000, 16384)]
+    assert CH.fingerprints_batch(chunks, device=dev) == \
+        [CH.fingerprint(c) for c in chunks]
+
+
+def test_comp_lane_on_the_card_matches_the_lane_off(dev):
+    """The comp lane on the card (one K9 launch for the compress group,
+    one K8 and one K6 launch for the fingerprint group) against
+    ``BatchEngine(enabled=False)``, which runs the host codec and
+    chunker."""
+    from ceph_tpu_torch.compress import chunker as CH
+    from ceph_tpu_torch.compress.registry import create_codec
+    from ceph_tpu_torch.osd.batch_engine import BatchEngine
+    rng = np.random.default_rng(19)
+    payloads = []
+    for i in range(16):
+        if i % 8 == 7:
+            payloads.append(rng.integers(0, 256, 65536, np.uint8).tobytes())
+        else:
+            run = int(rng.integers(16, 128))
+            vals = rng.integers(0, 256, 65536 // run + 1, np.uint8)
+            payloads.append(np.repeat(vals, run)[:65536].tobytes())
+    on = BatchEngine("on", device=dev, flush_ms=1000.0, max_ops=64,
+                     max_bytes=64 << 20)
+    off = BatchEngine("off", device="cpu", enabled=False)
+    codec, chunker = create_codec("rle"), CH.Chunker(4096)
+    before = build.counts()
+    comps = [on.submit_compress(codec, p) for p in payloads]
+    fps = [on.submit_fingerprint(chunker, p) for p in payloads]
+    on.flush_sync("comp")
+    after = build.counts()
+    assert after["run_starts"] - before["run_starts"] == 1
+    assert after["gear_hash"] - before["gear_hash"] == 1
+    assert after["crc32c_batch"] - before["crc32c_batch"] == 1
+    for c, f, p in zip(comps, fps, payloads):
+        assert c.result() == off.submit_compress(codec, p).result()
+        assert f.result() == off.submit_fingerprint(chunker, p).result()
+
+
+def test_profiler_fences_on_a_cuda_event(dev):
+    from ceph_tpu_torch.core.device_profiler import DeviceProfiler
+    from ceph_tpu_torch.ops.gf_torch import GFLinear
+    gl = GFLinear(rs.reed_sol_van_matrix(8, 3), device=dev)
+    x = _u8(dev, 64, 8, 131072, seed=5)
+    prof = DeviceProfiler(name="t", enabled=True)
+    with prof.bind():
+        out = gl(x)
+    (s,) = prof.samples()
+    assert s["kernel"] == "gf_encode" and s["bytes_out"] == out.numel()
+    assert s["compute_s"] >= 0.0
+    assert torch.equal(out, W.gf_matmul_bytes_plain(rs.reed_sol_van_matrix(
+        8, 3), x))

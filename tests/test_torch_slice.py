@@ -24,6 +24,8 @@ from ceph_tpu.osd.batch_engine import BatchEngine as JBatchEngine
 from ceph_tpu.scrub import engine as JS
 from ceph_tpu.crush import build_hierarchy
 from ceph_tpu.crush.compiler import crushmap_to_dict
+from ceph_tpu_torch.compress import chunker as CH
+from ceph_tpu_torch.compress import codec as CO
 from ceph_tpu_torch.crush import straw2 as K7
 from ceph_tpu_torch.crush.compiler import crushmap_from_dict
 from ceph_tpu_torch.crush.torch_mapper import BatchMapper
@@ -164,6 +166,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: BatchEngine("t"),
                  lambda: W.ResidentPlanes(np.zeros((4, 512), np.uint8)),
                  lambda: C.crc32c_batch(np.zeros((2, 8), np.uint8)),
+                 lambda: CH.fingerprints_batch([b"abc"]),
                  lambda: BatchMapper(crushmap_from_dict(crushmap_to_dict(
                      build_hierarchy(1, 2, 2))), 0, result_max=2)):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -189,6 +192,10 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
                         lambda *a, **k: called.append("packets"))
     monkeypatch.setattr(K7, "straw2_plain",
                         lambda *a, **k: called.append("straw2"))
+    monkeypatch.setattr(CH, "gear_hashes_plain",
+                        lambda *a, **k: called.append("gear"))
+    monkeypatch.setattr(CO, "run_starts_plain",
+                        lambda *a, **k: called.append("runs"))
     coding = rs.reed_sol_van_matrix(4, 2)
     meta = dict(device="meta")
     calls = [
@@ -211,6 +218,8 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
             K7.Straw2Tables(np.zeros((1, 2)), np.zeros((1, 2)),
                             np.ones((1, 1, 2)), [2], "meta"),
             *(torch.zeros(4, dtype=torch.int32, **meta),) * 4),
+        lambda: CH.gear_hashes(torch.empty(2, 64, dtype=torch.uint8, **meta)),
+        lambda: CO.run_starts(torch.empty(2, 64, dtype=torch.uint8, **meta)),
     ]
     for call in calls:
         with pytest.raises((ValueError, RuntimeError)):
@@ -238,7 +247,7 @@ def test_kernel_launch_path_raises_without_its_library(monkeypatch):
 def test_every_kernel_is_registered_with_its_source():
     assert set(build.KERNELS) == {"gf_words", "gf_expand", "gf_planes",
                                   "crc32c_batch", "gf_bytes", "gf2_packets",
-                                  "crush_straw2"}
+                                  "crush_straw2", "gear_hash", "run_starts"}
     for kern in build.KERNELS.values():
         assert (REPO / kern.source).exists()
         path, line = kern.replaces.split(":")
