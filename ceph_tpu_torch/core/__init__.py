@@ -1,1 +1,3 @@
-"""Core services of the port: the device profiler and its histogram."""
+"""Core services of the port: config and options, perf counters, the
+tracer, the device profiler, the flight recorder and the threading
+primitives."""

@@ -137,9 +137,10 @@ class DeviceProfiler:
     """Bounded ring of per-launch samples + per-kernel aggregates."""
 
     def __init__(self, name: str = "", ring_size: int = 1024,
-                 enabled: bool = False):
+                 enabled: bool = False, perf=None):
         self.name = name
         self.enabled = bool(enabled)
+        self.perf = perf        # a PerfCounters with the device_* counters
         self._lock = threading.Lock()
         self._ring: collections.deque = collections.deque(
             maxlen=max(1, int(ring_size)))
@@ -258,6 +259,16 @@ class DeviceProfiler:
                     agg["gap_s"] += gap
                     agg["gaps"] += 1
             self._hist.add(int(total * 1e6))
+        if self.perf is not None:
+            try:
+                self.perf.inc("device_launches")
+                self.perf.tinc("device_dispatch", dispatch)
+                self.perf.tinc("device_compute", compute)
+                self.perf.inc("device_bytes_in", lnch.bytes_in)
+                self.perf.inc("device_bytes_out", bytes_out)
+                self.perf.hinc("device_launch_hist", int(total * 1e6))
+            except KeyError:
+                pass            # daemon built without device counters
 
     # -- surfaces ----------------------------------------------------------
 

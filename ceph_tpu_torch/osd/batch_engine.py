@@ -44,9 +44,15 @@ per-PG ordering.
 dispatch ends after ``_stage_out`` queues the result copies, compute is
 the completion's wait at the flight's CUDA event.
 
-Not carried over: the mesh, the tracer, the ``on_lane_flush`` and
-``store_kick`` hooks of the OSD daemon (they come with the control
-plane).
+The OSD daemon's hooks, as ceph_tpu's: ``tracer`` (a
+``core.tracer.Tracer``) opens one ``megabatch_flush`` span a launch
+group, linked to the span each member was submitted with (``span=`` on
+every ``submit_*``); ``on_lane_flush(lane, ops, bytes)`` is told of
+every lane flush; ``store_kick`` (``WALStore.kick``) is called once a
+flush, after its launches, so one group-commit fsync covers the
+flush's transactions (counted in the ``store_kicks`` stats).
+
+Not carried over: the mesh (one card; ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -109,11 +115,11 @@ class Completion:
 class _Op:
     __slots__ = ("kind", "key", "chunks", "payload", "length",
                  "nbytes", "comp", "want", "passthrough", "codec", "mode",
-                 "chunker")
+                 "chunker", "span")
 
     def __init__(self, kind, key, comp, length, nbytes, chunks=None,
                  payload=None, want=None, passthrough=None, codec=None,
-                 mode=None, chunker=None):
+                 mode=None, chunker=None, span=None):
         self.kind = kind            # "encode"|"digest"|"recon"|"recheck"|
         #                             "compress"|"fingerprint"
         self.key = key              # executable-identity group key
@@ -128,13 +134,14 @@ class _Op:
         self.codec = codec          # compress: Codec instance
         self.mode = mode            # compress: pool compression_mode
         self.chunker = chunker      # fingerprint: Chunker instance
+        self.span = span            # the submitter's span, or None
 
 
 class _Flight:
     """One launched group awaiting its fence."""
 
     __slots__ = ("kind", "ops", "out", "event", "length", "bucket",
-                 "reason", "ln", "plan", "spans", "chunk_len")
+                 "reason", "ln", "plan", "spans", "chunk_len", "span")
 
     def __init__(self, kind, ops, out, event, length, bucket, reason, ln,
                  plan=None, spans=None, chunk_len=0):
@@ -149,6 +156,7 @@ class _Flight:
         self.plan = plan            # recon: DecodePlan (row_of mapping)
         self.spans = spans          # fingerprint: [(off, len), ...] per op
         self.chunk_len = chunk_len  # fingerprint: padded chunk row length
+        self.span = None            # the megabatch_flush span, or None
 
 
 class BatchEngine:
@@ -169,7 +177,8 @@ class BatchEngine:
                  comp_max_ops: int | None = None,
                  comp_flush_ms: float | None = None,
                  comp_segment_bytes: int = 1 << 20,
-                 bucket_floor: int = 32, profiler=None):
+                 bucket_floor: int = 32, profiler=None, tracer=None,
+                 on_lane_flush=None, store_kick=None):
         self.name = name
         self.device = resolve_device(device)
         self.enabled = bool(enabled)
@@ -197,6 +206,11 @@ class BatchEngine:
         self.comp_segment_bytes = int(comp_segment_bytes)
         self.bucket_floor = int(bucket_floor)
         self.profiler = profiler
+        self.tracer = tracer
+        self.on_lane_flush = on_lane_flush   # (lane, ops, bytes) hook
+        # zero-arg durability nudge (WALStore.kick): one group-commit
+        # fsync per megabatch flush instead of one per op
+        self.store_kick = store_kick
         self._schedule = schedule   # schedule(delay_s, fn) -> token
         self._lock = threading.Lock()        # pending accumulators
         self._flush_lock = threading.Lock()  # serializes dispatch
@@ -223,7 +237,8 @@ class BatchEngine:
         eng = getattr(ec, "engine", None)
         return eng if isinstance(eng, MatrixECEngine) else None
 
-    def submit_encode(self, ec, data, *, callback=None) -> Completion:
+    def submit_encode(self, ec, data, *, span=None,
+                      callback=None) -> Completion:
         """Queue a full-stripe encode+digest; the completion's value is
         ``({shard: bytes}, {shard: crc32c})`` over all k+m shards —
         byte- and digest-identical to ``ec.encode`` + host ``crc32c``
@@ -242,7 +257,7 @@ class BatchEngine:
                 self._enqueue(_Op("encode", key, comp,
                                   length=int(chunks.shape[1]),
                                   nbytes=int(chunks.nbytes),
-                                  chunks=chunks))
+                                  chunks=chunks, span=span))
                 return comp
         except Exception as e:      # noqa: BLE001 — poisoned payloads
             self.stats["ops_failed"] += 1   # fail their own op only
@@ -253,7 +268,8 @@ class BatchEngine:
         comp._fire(value=value)
         return comp
 
-    def submit_digest(self, payload, *, callback=None) -> Completion:
+    def submit_digest(self, payload, *, span=None,
+                      callback=None) -> Completion:
         """Queue a CRC-32C digest; completion value is the int crc."""
         comp = Completion(callback)
         self.stats["ops_submitted"] += 1
@@ -262,7 +278,7 @@ class BatchEngine:
             if self.enabled and not self._stopped and buf:
                 self._enqueue(_Op("digest", ("digest",), comp,
                                   length=len(buf), nbytes=len(buf),
-                                  payload=buf))
+                                  payload=buf, span=span))
                 return comp
             from ..scrub.crc32c import crc32c
             value = crc32c(buf)
@@ -287,7 +303,7 @@ class BatchEngine:
 
     # -- reconstruct lane --------------------------------------------------
 
-    def submit_reconstruct(self, ec, chunks, *, want=None,
+    def submit_reconstruct(self, ec, chunks, *, want=None, span=None,
                            callback=None) -> Completion:
         """Queue a degraded decode; the completion's value is
         ``{chunk_id: uint8 array}`` for every wanted id — byte-identical
@@ -334,7 +350,8 @@ class BatchEngine:
                         nbytes=int(surv.nbytes), chunks=surv,
                         want=want_ids,
                         passthrough={i: present[i] for i in want_ids
-                                     if i in present}), lane="recon")
+                                     if i in present}, span=span),
+                        lane="recon")
                     return comp
         except Exception as e:      # noqa: BLE001 — poisoned payloads
             self.stats["recon_ops_failed"] += 1
@@ -343,7 +360,8 @@ class BatchEngine:
         comp._fire(value=value)
         return comp
 
-    def submit_recheck(self, ec, data, *, callback=None) -> Completion:
+    def submit_recheck(self, ec, data, *, span=None,
+                       callback=None) -> Completion:
         """Queue a scrub parity re-encode; completion value is the
         ``[m, length]`` parity array, byte-identical to
         ``np.asarray(ec._encode_chunks(data))``."""
@@ -360,7 +378,8 @@ class BatchEngine:
                     "recheck", ("recheck", eng.k, eng.m,
                                 eng.coding.tobytes()),
                     comp, length=int(arr.shape[1]),
-                    nbytes=int(arr.nbytes), chunks=arr), lane="recon")
+                    nbytes=int(arr.nbytes), chunks=arr, span=span),
+                    lane="recon")
                 return comp
         except Exception as e:      # noqa: BLE001
             self.stats["recon_ops_failed"] += 1
@@ -377,7 +396,7 @@ class BatchEngine:
     # -- compression lane --------------------------------------------------
 
     def submit_compress(self, codec, payload, *, mode: str = "aggressive",
-                        callback=None) -> Completion:
+                        span=None, callback=None) -> Completion:
         """Queue an inline-compression pass; the completion's value is
         ``(stored_bytes, header | None)``.  ``header is None`` means
         pass-through: the payload did not shrink under an
@@ -396,15 +415,15 @@ class BatchEngine:
             buf = bytes(payload)
             if len(buf) > self.comp_segment_bytes > 0:
                 return self._submit_compress_segmented(codec, buf, mode,
-                                                       comp)
+                                                       span, comp)
             if (not self.enabled or not self.comp_enabled
                     or self._stopped or not buf):
                 value = self._compress_unbatched(codec, buf, mode)
             else:
                 self._enqueue(_Op("compress", ("compress", codec.name),
                                   comp, length=len(buf), nbytes=len(buf),
-                                  payload=buf, codec=codec, mode=mode),
-                              lane="comp")
+                                  payload=buf, codec=codec, mode=mode,
+                                  span=span), lane="comp")
                 return comp
         except Exception as e:      # noqa: BLE001 — poisoned payloads
             self.stats["comp_ops_failed"] += 1
@@ -431,7 +450,7 @@ class BatchEngine:
         return blob, {"algo": codec.name, "len": len(buf)}
 
     def _submit_compress_segmented(self, codec, buf: bytes, mode: str,
-                                   comp: Completion) -> Completion:
+                                   span, comp: Completion) -> Completion:
         """Segment path: fixed-size segments submitted as ordinary lane
         members (they coalesce with other objects' segments), joined
         back into one blob whose header carries each segment's stored
@@ -469,7 +488,8 @@ class BatchEngine:
             return cb
 
         for i, s in enumerate(segs):
-            self.submit_compress(codec, s, mode=mode, callback=_child(i))
+            self.submit_compress(codec, s, mode=mode, span=span,
+                                 callback=_child(i))
         return comp
 
     def decompress(self, blob, header: dict) -> bytes:
@@ -501,7 +521,7 @@ class BatchEngine:
         self.stats["comp_decompress_bytes"] += len(out)
         return out
 
-    def submit_fingerprint(self, chunker, payload, *,
+    def submit_fingerprint(self, chunker, payload, *, span=None,
                            callback=None) -> Completion:
         """Queue a dedup fingerprint pass; the completion's value is
         ``[(off, length, fp), ...]``: content-defined chunk spans with
@@ -520,8 +540,8 @@ class BatchEngine:
                 self._enqueue(_Op("fingerprint",
                                   ("fingerprint",) + chunker.key(), comp,
                                   length=len(buf), nbytes=len(buf),
-                                  payload=buf, chunker=chunker),
-                              lane="comp")
+                                  payload=buf, chunker=chunker,
+                                  span=span), lane="comp")
                 return comp
         except Exception as e:      # noqa: BLE001
             self.stats["comp_ops_failed"] += 1
@@ -597,7 +617,8 @@ class BatchEngine:
         with self._flush_lock:
             with self._lock:
                 pending, self._pending[lane] = self._pending[lane], []
-                self._pending_bytes[lane] = 0
+                staged, self._pending_bytes[lane] = \
+                    self._pending_bytes[lane], 0
                 self._armed[lane] = False
                 use_worker = (ms > 0 and not self._stopped
                               and not force_inline)
@@ -613,6 +634,21 @@ class BatchEngine:
                     inline.append(fl)
         for fl in inline:
             self._complete(fl)
+        if self.on_lane_flush is not None:
+            try:
+                self.on_lane_flush(lane, len(pending), staged)
+            except Exception:       # noqa: BLE001 — accounting hook
+                self.stats["callback_errors"] += 1
+        if self.store_kick is not None:
+            # durability boundary: the completions just dispatched
+            # queue their transactions — nudge the WAL group-commit
+            # thread so the whole megabatch shares one fsync and its
+            # acks (gated on commit) release together
+            try:
+                self.store_kick()
+                self.stats[f"{self._PREFIX[lane]}store_kicks"] += 1
+            except Exception:       # noqa: BLE001
+                self.stats["callback_errors"] += 1
         return len(flights)
 
     def drain(self):
@@ -669,12 +705,26 @@ class BatchEngine:
                   "fingerprint": self._launch_fingerprint}
         for (key, bucket_len), ops in self._groups(pending).items():
             rows = _next_pow2(len(ops))
+            span = None
+            if self.tracer is not None:
+                span = self.tracer.start_span(
+                    "megabatch_flush", tags={
+                        "layer": "device", "kernel": "megabatch",
+                        "op": key[0], "lane": lane,
+                        "members": len(ops),
+                        "rows": rows, "row_len": bucket_len,
+                        "reason": reason})
+                if span is not None:
+                    for op in ops:
+                        if op.span is not None:
+                            span.add_link(op.span)
             try:
                 fl = launch[key[0]](key, ops, rows, bucket_len, reason)
             except Exception as e:  # noqa: BLE001 — one group's
                 # launch failure must not kill sibling groups
-                self._fail_group(ops, e)
+                self._fail_group(ops, e, span)
                 continue
+            fl.span = span
             flights.append(fl)
             self.stats[launches_key] += 1
         return flights
@@ -884,7 +934,7 @@ class BatchEngine:
         except Exception as e:      # noqa: BLE001 — launch died at the
             if fl.ln is not None:   # fence: fail every member
                 fl.ln.abort()
-            self._fail_group(fl.ops, e)
+            self._fail_group(fl.ops, e, fl.span)
             return False
         if fl.ln is not None:
             outs = fl.out if isinstance(fl.out, tuple) else (fl.out,)
@@ -899,6 +949,8 @@ class BatchEngine:
             return
         if not self._fence(fl):
             return
+        if fl.span is not None:
+            fl.span.finish()
         parity = crcs = rec = None
         if fl.kind == "encode":
             parity = fl.out[0].numpy()
@@ -974,7 +1026,7 @@ class BatchEngine:
                      for op, spans in zip(fl.ops, fl.spans)
                      for off, ln in spans], fl.chunk_len))
             except Exception as e:  # noqa: BLE001 — fail the flight
-                self._fail_group(fl.ops, e)
+                self._fail_group(fl.ops, e, fl.span)
                 return
         for i, op in enumerate(fl.ops):
             try:
@@ -1002,8 +1054,13 @@ class BatchEngine:
             except Exception:       # noqa: BLE001 — a member's
                 # callback blowing up must not starve its siblings
                 self.stats["callback_errors"] += 1
+        if fl.span is not None:
+            fl.span.finish()
 
-    def _fail_group(self, ops, err):
+    def _fail_group(self, ops, err, span=None):
+        if span is not None:
+            span.set_tag("error", repr(err))
+            span.finish()
         for op in ops:
             self.stats["recon_ops_failed"
                        if op.kind in ("recon", "recheck")

@@ -15,6 +15,7 @@ float products stay exact.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -245,6 +246,63 @@ def crc32c_zero_unpad_many(crcs, pads) -> np.ndarray:
     zeros = _apply_powers(np.full(len(pads), mask), pads, False) ^ mask
     zeros[pads == 0] = 0
     return _apply_powers(crcs ^ zeros, pads, True)
+
+
+# --------------------------------------------------- block-parallel host
+
+_BLOCKS_MIN = 256               # bytes below which the scalar walk is as fast
+
+
+@functools.lru_cache(maxsize=1)
+def _pair_tables() -> tuple[np.ndarray, np.ndarray]:
+    """Two [65536] uint32 tables for one 4-byte step of the raw register:
+    entry ``v`` of the first is the register after the little-endian
+    pair ``v`` then two zero bytes, of the second after ``v`` alone."""
+    t = np.asarray(_TABLE, dtype=np.uint32)
+    after = [t]                 # after[z][b]: byte b, then z zero bytes
+    for _ in range(3):
+        after.append((after[-1] >> np.uint32(8))
+                     ^ t[after[-1] & np.uint32(0xFF)])
+    v = np.arange(1 << 16, dtype=np.uint32)
+    lo, hi = v & np.uint32(0xFF), v >> np.uint32(8)
+    return (after[3][lo] ^ after[2][hi], after[1][lo] ^ after[0][hi])
+
+
+def crc32c_blocks(data, crc: int = 0) -> int:
+    """:func:`crc32c`, bit for bit, at numpy speed on one host core.
+
+    The buffer splits into ``B`` blocks of ``L`` bytes (``L`` a power of
+    two near ``sqrt(n / 16)``).  The table walk runs across all blocks
+    at once, one numpy step per 4 bytes of a block, through two 16-bit
+    tables; each block starts from a zero register, the first from
+    ``crc``'s.  By linearity the blocks' registers then fold pairwise in
+    a log-depth tree, ``r = A^span · r_left ⊕ r_right``, with the cached
+    squarings of :func:`_apply_powers`; the bytes past the last block go
+    through :func:`crc32c`."""
+    b = _as_bytes(data)
+    n = len(b)
+    if n < _BLOCKS_MIN:
+        return crc32c(b, crc)
+    blk = 1 << max(4, round(math.log2(math.sqrt(n / 16))))
+    nblk = n // blk
+    words = np.ascontiguousarray(np.frombuffer(
+        b, dtype=np.uint32, count=nblk * blk // 4).reshape(nblk, blk // 4).T)
+    lo_tab, hi_tab = _pair_tables()
+    reg = np.zeros(nblk, dtype=np.uint32)
+    reg[0] = (int(crc) ^ _MASK) & _MASK
+    for step in words:
+        reg ^= step
+        pairs = reg.view(np.uint16)
+        reg = lo_tab.take(pairs[0::2]) ^ hi_tab.take(pairs[1::2])
+    # zero registers in front of the first block leave the fold as it is
+    width = 1 << (nblk - 1).bit_length()
+    reg = np.concatenate([np.zeros(width - nblk, dtype=np.uint32), reg])
+    span = blk
+    while len(reg) > 1:
+        reg = _apply_powers(reg[0::2], np.full(len(reg) // 2, span),
+                            False) ^ reg[1::2]
+        span *= 2
+    return crc32c(b[nblk * blk:], (int(reg[0]) ^ _MASK) & _MASK)
 
 
 # ------------------------------------------------------- batch kernel

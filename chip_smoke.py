@@ -73,6 +73,26 @@ time):
      --num-rep 3 --show-statistics`` over 1 Mi inputs on the card
      (engine ``batched (cuda)``), and ``--show-mappings`` of 1024 inputs
      equal line for line to ``--scalar`` (8 host processes);
+   - store (the OSD's write path below the PG, ``store_phase``): the
+     batch engine built from the option defaults as the OSD daemon
+     builds it, with a 5 ms window on a ``SafeTimer``, an enabled
+     ``Tracer`` and ``store_kick`` on a ``WALStore`` (``sync_mode``
+     batch, in a fresh temporary directory whose filesystem type is
+     printed); 64 objects of 4 MiB, k=8 m=3, through
+     ``submit_encode(span=...)``, each completion queueing one
+     transaction per shard into ``1.0s<shard>`` (remove, touch, write,
+     the ``"_"`` attribute with the shard's hinfo); kicks equal to the
+     flushes, ``megabatch_flush`` spans equal to the launches and
+     linking their members, every ``on_commit``; a ``mid_record`` power
+     cut in the last flush, recorded by ``on_error``; the remount
+     truncates the torn tail, every acknowledged object is read back,
+     its data shards held against its payload and every shard
+     re-digested by K6 against its stored hinfo; ``objectstore_tool
+     --op fsck`` / ``--op list-pgs`` and ``kvstore_tool list``, run as
+     three ``python -m`` processes at once, report the store clean; one
+     ``store`` JSON line (objects, MiB, records, fsyncs, kicks, flushes,
+     append / framing / CRC / replay ms, the host CRC's path and MiB/s,
+     spans, the lane's device profiler split);
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -89,8 +109,8 @@ time):
    issue and the pipes, at the card's SM count and maximum SM clock);
    ``gear_hash`` and ``run_starts`` at [64, 1 MiB] (``run_starts``
    beside the one PyTorch call ``torch.ne(x[:, 1:], x[:, :-1])``); then
-   ``[profile]`` lines: per lane (write, recon, comp, fingerprint) and for
-   the crush mappings, the device profiler's launches, dispatch, compute
+   ``[profile]`` lines: per lane (write, recon, comp, fingerprint, store)
+   and for the crush mappings, the device profiler's launches, dispatch, compute
    (the host's wait at the CUDA events) and gap against the lane's wall,
    and a device-busy estimate (every launch at its kernel's graph-timed
    ms); print one ``kernels`` JSON line (``crc32c_batch``'s ``ms`` is
@@ -107,6 +127,7 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -161,6 +182,8 @@ FP_CHUNK_ROWS, FP_CHUNK_LEN = 16384, 16384  # K6 at the fingerprint launch
 CT_OSDS, CT_PGS, CT_MAPPINGS = 4096, 1 << 20, 1024  # crushtool --test
 EDGE_LENGTHS, EDGE_ROWS = (1, 31, 32, 33, 4097), (1, 3)   # K8 / K9 edges
 INT_OPS_PER_SM = 64                     # int32 lanes per SM and clock
+STORE_N, STORE_OBJ = 64, 4 << 20        # store phase: the write lane's width
+STORE_PGID, STORE_FLUSH_MS = "1.0", 5.0
 
 
 def fail(msg: str):
@@ -556,6 +579,327 @@ def crushtool_phase(dev, n_osd: int, n_pgs: int, n_mappings: int) -> dict:
         fail("crushtool --show-mappings differs from --scalar")
     return {"stats": stats, "seconds": runs["statistics"][3],
             "mappings_s": runs["mappings"][3], "workers": workers}
+
+
+def obj_meta(version, size: int, hinfo: int | None = None) -> bytes:
+    """An object's ``"_"`` attribute as ``ceph_tpu.osd.pg._obj_meta``
+    builds it: version, logical size and the shard's hinfo CRC-32C."""
+    d = {"version": list(version), "size": size}
+    if hinfo is not None:
+        d["hinfo"] = hinfo
+    return json.dumps(d).encode()
+
+
+def osd_engine(cfg, dev, **hooks):
+    """The batch engine as ``ceph_tpu.osd.daemon`` builds it from its
+    ``osd_*batch*`` options (the port has no ``use_mesh``)."""
+    from ceph_tpu_torch.osd.batch_engine import BatchEngine
+    return BatchEngine(
+        "osd.0", device=dev, enabled=cfg["osd_batch_enable"],
+        max_bytes=cfg["osd_batch_max_bytes"],
+        max_ops=cfg["osd_batch_max_ops"],
+        flush_ms=cfg["osd_batch_flush_ms"],
+        recon_enabled=cfg["osd_recovery_batch_enable"],
+        recon_max_bytes=cfg["osd_recovery_batch_max_bytes"],
+        recon_max_ops=cfg["osd_recovery_batch_max_ops"],
+        recon_flush_ms=cfg["osd_recovery_batch_flush_ms"],
+        comp_enabled=cfg["osd_compress_batch_enable"],
+        comp_max_bytes=cfg["osd_compress_batch_max_bytes"],
+        comp_max_ops=cfg["osd_compress_batch_max_ops"],
+        comp_flush_ms=cfg["osd_compress_batch_flush_ms"],
+        comp_segment_bytes=cfg["osd_compress_segment_bytes"],
+        bucket_floor=cfg["osd_batch_bucket_floor"], **hooks)
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type of the mount holding ``path``."""
+    path, best = os.path.realpath(path), ("", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            mnt, kind = line.split()[1:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best[0]):
+                best = (mnt, kind)
+    return best[1]
+
+
+def run_tools(commands: dict) -> dict:
+    """Offline tools of the port as a user runs them (``python -m``), all
+    at once, one process each: {label: (exit code, stdout)}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", f"ceph_tpu_torch.tools.{tool}", *argv],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for label, (tool, argv) in commands.items()}
+    out = {}
+    for label, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode and stderr:
+            log(f"[store] {label}: {stderr.strip()[-2000:]}")
+        out[label] = (proc.returncode, stdout)
+    return out
+
+
+def store_phase(dev, n_obj: int, obj: int, seed: int = 23) -> dict:
+    """The OSD's write path below the PG on ``dev``: the batch engine as
+    the daemon builds it (option defaults, a ``flush_ms`` window on a
+    ``SafeTimer``, an enabled ``Tracer``, ``store_kick`` on the store)
+    encodes ``n_obj`` objects of ``obj`` bytes at k=8 m=3; each
+    completion queues one transaction per shard (remove, touch, write,
+    the ``"_"`` attribute with the shard's hinfo) into collection
+    ``<pgid>s<shard>`` of one ``WALStore`` in ``sync_mode="batch"``.
+    The last flush meets a ``mid_record`` power cut; the store is
+    remounted, every acknowledged object read back and re-digested on
+    ``dev`` with K6, and the offline tools check the store."""
+    import random
+
+    import torch
+    from ceph_tpu_torch.core.config import ConfigProxy
+    from ceph_tpu_torch.core.device_profiler import DeviceProfiler
+    from ceph_tpu_torch.core.options import build_options
+    from ceph_tpu_torch.core.perf_counters import PerfCountersBuilder
+    from ceph_tpu_torch.core.threading_utils import SafeTimer
+    from ceph_tpu_torch.core.tracer import Tracer
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.os_store import (CrashInjector, SimulatedPowerLoss,
+                                         Transaction, WALStore, walog)
+    from ceph_tpu_torch.scrub.crc32c import crc32c_rows
+    n = K + M
+    chunk = obj // K
+    cfg = ConfigProxy(build_options())
+    cfg.set("osd_batch_flush_ms", STORE_FLUSH_MS, "cmdline")
+    cfg.set("jaeger_tracing_enable", True, "cmdline")
+    per_flush = min(cfg["osd_batch_max_ops"],
+                    -(-cfg["osd_batch_max_bytes"] // obj))
+    if n_obj % per_flush or n_obj < 2 * per_flush:
+        fail(f"store: {n_obj} objects do not fill whole flushes of "
+             f"{per_flush}")
+    perf = (PerfCountersBuilder("osd.0")
+            .add_u64_counter("device_launches").add_time_avg("device_dispatch")
+            .add_time_avg("device_compute").add_u64_counter("device_bytes_in")
+            .add_u64_counter("device_bytes_out")
+            .add_histogram("device_launch_hist").create_perf_counters())
+    prof = DeviceProfiler("osd.0", enabled=True, perf=perf)
+    tracer = Tracer(daemon="osd.0", ring_size=cfg["tracer_ring_size"],
+                    enabled=cfg["jaeger_tracing_enable"],
+                    sampling_rate=cfg["tracer_sampling_rate"],
+                    span_budget=cfg["tracer_span_budget"],
+                    tail_slow_s=cfg["tracer_tail_slow_ms"] / 1e3,
+                    rng=random.Random(seed))
+    tmp = tempfile.mkdtemp(prefix="store_phase_")
+    path = os.path.join(tmp, "osd.0.wal")
+    crash = CrashInjector(seed=seed, osd="osd.0")
+    store = WALStore(path, sync_mode=cfg["osd_wal_sync_mode"], crash=crash,
+                     name="osd.0")
+    errors, unexpected = [], []
+    store.on_error = errors.append          # the daemon's _on_store_error
+    store.mount()
+    mk = Transaction()
+    for s in range(n):
+        mk.create_collection(f"{STORE_PGID}s{s}")
+    store.queue_transaction(mk)
+    timer = SafeTimer("osd.0-timer")
+    eng = osd_engine(cfg, dev, profiler=prof, tracer=tracer,
+                     schedule=lambda d, fn: timer.add_event_after(d, fn),
+                     store_kick=store.kick)
+    ec = create_erasure_code({"plugin": "torch_cuda", "k": K, "m": M,
+                              "technique": "reed_sol_van"}, device=dev)
+    payloads = np.random.default_rng(seed).integers(
+        0, 256, size=(n_obj, obj), dtype=np.uint8)
+    lock = threading.Lock()
+    acks = [0] * n_obj
+    held, lost = {}, []
+    queue_s = [0.0]
+    fsyncs = [0, 0.0]
+    real_fsync = os.fsync
+
+    def timed_fsync(fd):
+        t0 = time.perf_counter()
+        real_fsync(fd)
+        fsyncs[0] += 1
+        fsyncs[1] += time.perf_counter() - t0
+
+    def committed(i):
+        with lock:
+            acks[i] += 1
+
+    def encoded(i, comp):
+        try:
+            shards, hinfos = comp.value
+            held[i] = hinfos
+            oid = f"obj{i}"
+            for s in range(n):
+                cid = f"{STORE_PGID}s{s}"
+                t0 = time.perf_counter()
+                txn = (Transaction().remove(cid, oid).touch(cid, oid)
+                       .write(cid, oid, 0, shards[s])
+                       .setattrs(cid, oid, {"_": obj_meta(
+                           (1, i + 1), obj, hinfo=hinfos[s])}))
+                try:
+                    store.queue_transaction(
+                        txn, on_commit=lambda i=i: committed(i))
+                except SimulatedPowerLoss:
+                    lost.append((i, s))
+                queue_s[0] += time.perf_counter() - t0
+        except Exception as e:      # noqa: BLE001 — reported, fails below
+            unexpected.append(repr(e))
+
+    def submit(ids):
+        out = []
+        for i in ids:
+            op = tracer.start_span("osd_op", tags={"layer": "osd"})
+            span = tracer.start_span("gf_encode", parent=op, tags={
+                "layer": "device", "kernel": "gf_encode", "bytes": obj})
+            out.append((i, op, span, eng.submit_encode(
+                ec, payloads[i], span=span,
+                callback=lambda c, i=i: encoded(i, c))))
+        eng.drain()             # every completion has queued its shards
+        for i, op, span, comp in out:
+            comp.result(timeout=600)
+            span.finish()
+            op.finish()
+        return [span.span_id for _i, _o, span, _c in out]
+
+    os.fsync = timed_fsync
+    try:
+        t0 = time.perf_counter()
+        encode_spans = submit(range(n_obj - per_flush))
+        if not store.flush_commits(timeout=600):
+            fail("store: group commit did not drain")
+        wall = time.perf_counter() - t0
+        acked = [i for i, a in enumerate(acks) if a == n]
+        if acked != list(range(n_obj - per_flush)):
+            fail(f"store: {n_obj - per_flush - len(acked)} objects lack "
+                 f"their on_commit")
+        stats_pre = dict(store.wal_stats)
+        # the crash leg: a power cut partway through the first record of
+        # the last flush
+        crash.arm("mid_record")
+        encode_spans += submit(range(n_obj - per_flush, n_obj))
+    finally:
+        os.fsync = real_fsync
+    eng.stop()
+    timer.shutdown()
+    stats = dict(eng.stats)
+    if unexpected:
+        fail(f"store: completion errors {unexpected}")
+    if len(errors) != 1 or not isinstance(errors[0], SimulatedPowerLoss) \
+            or [p for p, _n in crash.fired] != ["mid_record"]:
+        fail(f"store: want one injected mid_record power loss, got "
+             f"{errors} (fired {crash.fired})")
+    if sorted({i for i, _s in lost}) != list(range(n_obj - per_flush,
+                                                   n_obj)) \
+            or any(acks[i] for i in range(n_obj - per_flush, n_obj)):
+        fail(f"store: the last flush's objects were acknowledged ({lost})")
+    wal_bytes = store.wal_stats["bytes"]
+    store.process_death()                   # forget it, remount the path
+    flushes = sum(v for k, v in stats.items() if k.startswith("flush_"))
+    if stats.get("store_kicks") != flushes:
+        fail(f"store: {stats.get('store_kicks')} kicks for {flushes} "
+             f"flushes")
+    spans = [s for s in tracer.dump() if s["name"] == "megabatch_flush"]
+    if len(spans) != stats["launches"]:
+        fail(f"store: {len(spans)} megabatch_flush spans for "
+             f"{stats['launches']} launches")
+    if sorted(l["s"] for s in spans for l in s["links"]) != \
+            sorted(encode_spans) or any(
+                len(s["links"]) != s["tags"]["members"] for s in spans):
+        fail("store: the flush spans do not link their member op spans")
+
+    t0 = time.perf_counter()
+    again = WALStore(path, name="osd.0")
+    again.mount()
+    replay = time.perf_counter() - t0
+    rs_ = again.replay_stats
+    n_acked = n_obj - per_flush
+    if rs_["clean_shutdown"] or rs_["tail"]["status"] != "torn" \
+            or rs_["records"] != 1 + n_acked * n \
+            or os.path.getsize(path) != wal_bytes:
+        fail(f"store: remount replay {rs_}, size {os.path.getsize(path)} "
+             f"(want the torn tail truncated to {wal_bytes})")
+    rows, metas = [], []
+    for i in range(n_obj):
+        for s in range(n):
+            cid, oid = f"{STORE_PGID}s{s}", f"obj{i}"
+            if i >= n_acked:
+                if again.exists(cid, oid):
+                    fail(f"store: unacknowledged {cid}/{oid} survived")
+                continue
+            rows.append(np.frombuffer(again.read(cid, oid), np.uint8))
+            meta = json.loads(again.getattr(cid, oid, "_"))
+            if meta["version"] != [1, i + 1] or meta["size"] != obj:
+                fail(f"store: {cid}/{oid} meta {meta}")
+            metas.append(meta["hinfo"])
+        if i < n_acked and b"".join(
+                rows[-n + s].tobytes() for s in range(K)) != \
+                payloads[i].tobytes():
+            fail(f"store: object {i}'s data shards differ from its payload")
+    stack = torch.from_numpy(np.stack(rows)).to(dev)
+    digests = crc32c_rows(stack).cpu().numpy().view(np.uint32).tolist()
+    want = [held[i][s] for i in range(n_acked) for s in range(n)]
+    if digests != metas or metas != want:
+        fail("store: shards read back do not digest to their hinfos")
+    again.umount()
+    del stack
+
+    # the host CRC of the records, alone
+    with open(path, "rb") as f:
+        head = f.read(64 << 20)
+    recs = walog.scan_records(head)[0]
+    t0 = time.perf_counter()
+    for r in recs:
+        walog.crc32c(r)
+    crc_s = time.perf_counter() - t0
+    crc_mib = sum(map(len, recs)) / 2**20
+    # the hex + JSON framing of one shard record, alone (8 samples)
+    sample = Transaction().remove("c", "o").touch("c", "o").write(
+        "c", "o", 0, payloads[0][:chunk].tobytes()).setattrs(
+        "c", "o", {"_": obj_meta((1, 1), obj, hinfo=0)})
+    t0 = time.perf_counter()
+    for _ in range(8):
+        json.dumps(sample.to_dict(), separators=(",", ":")).encode()
+    frame_s = (time.perf_counter() - t0) / 8
+    t0 = time.perf_counter()
+    runs = run_tools({
+        "fsck": ("objectstore_tool", ["--data-path", path, "--op", "fsck"]),
+        "list-pgs": ("objectstore_tool",
+                     ["--data-path", path, "--op", "list-pgs"]),
+        "kvstore": ("kvstore_tool", [path, "list"])})
+    tools_s = time.perf_counter() - t0
+    rc, out = runs["fsck"]
+    report = json.loads(out) if out.strip() else {}
+    if rc or not report or report["issues"] \
+            or report["tail"]["status"] != "clean" \
+            or report["records"] != 1 + n_acked * n:
+        fail(f"store: objectstore_tool fsck rc {rc}: {report}")
+    rc, out = runs["list-pgs"]
+    if rc or out.split() != [STORE_PGID]:
+        fail(f"store: objectstore_tool list-pgs rc {rc}: {out!r}")
+    rc, out = runs["kvstore"]
+    if rc or out or os.path.getsize(path) != wal_bytes:
+        fail(f"store: kvstore_tool list rc {rc}: {out!r}")
+    kind = fs_type(tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    tot = prof.aggregate()["totals"]
+    return {
+        "objects": n_obj, "acked": n_acked, "fs": kind,
+        "shard_MiB": n_acked * n * chunk / 2**20,
+        "wal_MiB": wal_bytes / 2**20, "records": stats_pre["records"],
+        "syncs": stats_pre.get("group_syncs", 0),
+        "fsyncs": fsyncs[0], "fsync_ms": fsyncs[1] * 1e3,
+        "kicks": stats["store_kicks"], "flushes": flushes,
+        "launches": stats["launches"], "spans": len(spans),
+        "append_ms": queue_s[0] * 1e3, "wall_ms": wall * 1e3,
+        "frame_ms": frame_s * stats_pre["records"] * 1e3,
+        "crc_ms": wal_bytes / 2**20 / (crc_mib / crc_s) * 1e3,
+        "replay_ms": replay * 1e3, "tools_ms": tools_s * 1e3,
+        "crc_path": walog.CRC_PATH, "crc_MiBps": crc_mib / crc_s,
+        "torn_tail": rs_["tail"],
+        "profile": {"launches": tot["launches"],
+                    "dispatch_ms": tot["dispatch_s"] * 1e3,
+                    "compute_ms": tot["compute_s"] * 1e3,
+                    "gap_ms": tot["gap_s"] * 1e3}, "totals": tot,
+        "perf_device_launches": perf.get("device_launches")}
 
 
 def time_plain(torch, fn, iters: int = 2) -> float:
@@ -1218,6 +1562,33 @@ def main():
         f"--show-mappings equals --scalar line for line ({ct['workers']} "
         f"host processes)")
 
+    store = store_phase(dev, STORE_N, STORE_OBJ)
+    close_phase("store")
+    log(f"[store] {STORE_N} x {STORE_OBJ >> 20} MiB, k={K} m={M}, through "
+        f"the engine built from the option defaults (flush_ms "
+        f"{STORE_FLUSH_MS}) into a WALStore in sync_mode batch on "
+        f"{store['fs']}: {store['acked']} objects acknowledged, "
+        f"{store['shard_MiB']:.1f} MiB of shards in {store['records']} "
+        f"records ({store['wal_MiB']:.1f} MiB of WAL) with "
+        f"{store['syncs']} group fsyncs for {store['flushes']} flushes "
+        f"({store['kicks']} kicks); {store['wall_ms']:.1f} ms wall, of "
+        f"which {store['append_ms']:.1f} ms queueing transactions (hex "
+        f"and JSON framing ~{store['frame_ms']:.1f} ms, record CRC "
+        f"~{store['crc_ms']:.1f} ms, from samples) and, on the commit "
+        f"thread, {store['fsync_ms']:.1f} ms in fsync (host clock); the last "
+        f"flush's mid_record power cut left a torn tail "
+        f"({store['torn_tail']['lost_bytes']} bytes) that the remount "
+        f"truncated; replay {store['replay_ms']:.1f} ms; every "
+        f"acknowledged shard re-digested by crc32c_batch equals its "
+        f"hinfo; fsck, list-pgs and kvstore_tool clean "
+        f"({store['tools_ms']:.1f} ms); host CRC {store['crc_path']} at "
+        f"{store['crc_MiBps']:.1f} MiB/s; "
+        f"{phase_counts['store']['gf_words']} gf_words and "
+        f"{phase_counts['store']['crc32c_batch']} crc32c_batch launches")
+    walls["store"], totals["store"] = store["wall_ms"] / 1e3, \
+        store.pop("totals")
+    log(json.dumps({"store": store}))
+
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
     log(f"[launches] {json.dumps(phase_counts)}")
@@ -1230,7 +1601,9 @@ def main():
                         ("comp", "run_starts"),
                         ("fingerprint", "gear_hash"),
                         ("fingerprint", "crc32c_batch"),
-                        ("crushtool", "crush_straw2")):
+                        ("crushtool", "crush_straw2"),
+                        ("store", "gf_words"),
+                        ("store", "crc32c_batch")):
         if phase_counts[phase][name] <= 0:
             fail(f"kernel {name} was not launched on its phase {phase}")
 
@@ -1444,7 +1817,7 @@ def main():
     kernel_ms = {e["name"]: e["ms_warm"] for e in entries}
     for lane, phase in (("write", "write_lane"), ("recon", "recovery_lane"),
                         ("comp", "comp"), ("fingerprint", "fingerprint"),
-                        ("crush", "crush")):
+                        ("crush", "crush"), ("store", "store")):
         tot = totals[lane]
         busy = sum(n * kernel_ms[k] for k, n in phase_counts[phase].items())
         if lane == "crush":     # the two timed mappings' K7 launches only

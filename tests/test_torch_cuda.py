@@ -409,3 +409,20 @@ def test_profiler_fences_on_a_cuda_event(dev):
     assert s["compute_s"] >= 0.0
     assert torch.equal(out, W.gf_matmul_bytes_plain(rs.reed_sol_van_matrix(
         8, 3), x))
+
+
+def test_store_phase_crash_leg_on_the_card(dev):
+    """The smoke's store phase at 4 objects of 4 MiB: the last flush
+    meets a mid_record power cut, the remount truncates the torn tail,
+    and every acknowledged shard re-digested by K6 equals its hinfo."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    before = build.counts()
+    out = chip_smoke.store_phase(dev, 4, 4 << 20)
+    after = build.counts()
+    assert out["acked"] == 2 and out["torn_tail"]["status"] == "torn"
+    assert out["kicks"] == out["flushes"] == out["spans"] == 2
+    assert after["gf_words"] > before["gf_words"]
+    assert after["crc32c_batch"] > before["crc32c_batch"]
