@@ -1,3 +1,4 @@
 """Core services of the port: config and options, perf counters, the
-tracer, the device profiler, the flight recorder and the threading
-primitives."""
+tracer, the device profiler, the flight recorder, the threading
+primitives, the bufferlist, the wire encoding, auth, the admin socket
+and the cluster-log client."""

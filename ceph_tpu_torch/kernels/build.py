@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry name -> argtypes; every entry returns cudaGetLastError()
 _SIGNATURES = {
     # in, out, tables, batch, k, rows, rows per block, nw, stream
@@ -65,6 +66,9 @@ _SIGNATURES = {
     "ctt_gear_hash": [_P, _P, _P, _I, _L, _I, _P],
     # in, out, rows, row length, vector path, stream
     "ctt_run_starts": [_P, _P, _I, _L, _I, _P],
+    # sid, stamp, now, objects, missing, backfill remaining, scrub
+    # errors, rows, histogram length, out, blocks, stream
+    "ctt_pgmap_fold": [_P, _P, _D, _P, _P, _P, _P, _L, _I, _P, _I, _P],
 }
 
 

@@ -8,10 +8,11 @@ one, or without the package beside it, it exits non-zero and prints no
 result.  Phases (any failure exits non-zero; each prints its wall
 time):
 
-1. build the nine CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
+1. build the ten CUDA kernels from ``ceph_tpu_torch/csrc`` with nvcc
    and print the ``-Xptxas -v`` registers and spills of ``gf_words``,
    ``gf_bytes``, ``gf_planes``, ``crc32c_batch``, ``gf2_packets``,
-   ``crush_straw2``, ``gear_hash`` and ``run_starts``, and the
+   ``crush_straw2``, ``gear_hash``, ``run_starts`` and ``pgmap_fold``,
+   and the
    instructions of one item of ``crush_straw2``'s loop by pipe, read
    from its SASS (``cuobjdump``);
 2. hold each kernel against its plain PyTorch version on the card, at
@@ -29,7 +30,10 @@ time):
    at the comp lane's flush ([64, 1 MiB], a row of leading zero bytes)
    and at edge shapes (L 1/31/32/33/4097, rows 1 and 3, views off the
    16-byte boundary); ``crc32c_batch`` at the fingerprint lane's launch
-   ([16384, 16384]);
+   ([16384, 16384]); ``pgmap_fold`` (K11) exactly at [2^20] PGs of 7
+   states, at n 1/31/32/33/1023/65537, with hist_len 2 and above its
+   shared-memory cap, and with NaN, exactly-the-grace and negative
+   ages, all stale and all fresh;
 3. drive the main path at full width, launch counts set to 0 first and
    read after each phase:
    - ``ec_bench``: encode and decode sweep (EC pool k=8 m=3
@@ -93,6 +97,25 @@ time):
      ``store`` JSON line (objects, MiB, records, fsyncs, kicks, flushes,
      append / framing / CRC / replay ms, the host CRC's path and MiB/s,
      spans, the lane's device profiler split);
+   - mon (``mon_phase``), in ``crc`` and then in ``secure`` mode (one
+     ``ClusterAuth``; the line names the AEAD branch that ran): three
+     port ``Monitor``s on 127.0.0.1 ephemeral ports, each on a
+     ``MonitorDBStore`` WAL in a fresh temporary directory (filesystem
+     type printed); quorum, then through a ``MonClient``: ``osd
+     setcrushmap`` with the crush phase's 4096-OSD map, an EC profile
+     k=8 m=3 ``reed_sol_van``, an EC pool and a replicated pool of 2^20
+     PGs, ``config-key put/get``, ``log``, ``status``, ``health
+     detail``, ``pg summary``; each mutating command answered only
+     after its Paxos round committed, every mon at the same version;
+     the leader killed, a new one elected and serving, the killed mon
+     restarted from its WAL and caught up; one ``[mon]`` line a mode;
+   - controlplane (``controlplane_phase``, ``bench.py::
+     _controlplane_leg``'s size): ``ScaleHarness(n_osds=4096,
+     pg_num=2^20, seed=1, placement="crush")`` on the card (K7), 1024
+     sampled placements against the plain mapper, ``evaluate()`` best
+     of 5 beside the reference's 100 ms bar (reported, not gated),
+     ``summary()``, and ``summary_arrays(use_device=True)`` (K11) equal
+     to the numpy fold, also at 1% stale PGs and with NaN stamps;
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -108,7 +131,10 @@ time):
    operations bound from the SASS count of phase 1: the most loaded of
    issue and the pipes, at the card's SM count and maximum SM clock);
    ``gear_hash`` and ``run_starts`` at [64, 1 MiB] (``run_starts``
-   beside the one PyTorch call ``torch.ne(x[:, 1:], x[:, :-1])``); then
+   beside the one PyTorch call ``torch.ne(x[:, 1:], x[:, :-1])``);
+   ``pgmap_fold`` on the controlplane harness's 2^20 columns, then the
+   ``[controlplane]`` line (health, summary, numpy and device folds with
+   the copy-in, K11's graph-timed ms); then
    ``[profile]`` lines: per lane (write, recon, comp, fingerprint, store)
    and for the crush mappings, the device profiler's launches, dispatch, compute
    (the host's wait at the CUDA events) and gap against the lane's wall,
@@ -184,6 +210,10 @@ EDGE_LENGTHS, EDGE_ROWS = (1, 31, 32, 33, 4097), (1, 3)   # K8 / K9 edges
 INT_OPS_PER_SM = 64                     # int32 lanes per SM and clock
 STORE_N, STORE_OBJ = 64, 4 << 20        # store phase: the write lane's width
 STORE_PGID, STORE_FLUSH_MS = "1.0", 5.0
+MON_PG_NUM, MON_EC_PG_NUM = 1 << 20, 4096  # mon phase: the pools created
+CP_OSDS, CP_PGS, CP_SAMPLE = 4096, 1 << 20, 1024  # _controlplane_leg
+HEALTH_BAR_MS = 100.0                   # bench.py:1567, reported only
+FOLD_EDGE_ROWS = (1, 31, 32, 33, 1023, 65537)   # K11 edge row counts
 
 
 def fail(msg: str):
@@ -902,6 +932,275 @@ def store_phase(dev, n_obj: int, obj: int, seed: int = 23) -> dict:
         "perf_device_launches": perf.get("device_launches")}
 
 
+def wait_until(pred, timeout: float, what: str, interval: float = 0.01):
+    """Poll ``pred`` until it holds; fail the smoke after ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(interval)
+    fail(f"timed out after {timeout:.0f} s waiting for {what}")
+
+
+def free_ports(n: int) -> list[int]:
+    """``n`` ephemeral localhost ports, as the OS hands them out."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def mon_crushmap(hosts: int, per_host: int) -> dict:
+    """The crush phase's map (``hosts`` x ``per_host`` OSDs) as a dict
+    for ``osd setcrushmap``: its replicated rule (id 0) and its EC rule
+    (``chooseleaf_indep host``) as rule 1, the erasure rule id the mon
+    gives an EC pool."""
+    from ceph_tpu_torch.crush.compiler import crushmap_to_dict
+    from ceph_tpu_torch.crush.map import build_hierarchy
+    out = crushmap_to_dict(build_hierarchy(1, hosts, per_host))
+    ec = crushmap_to_dict(build_hierarchy(1, hosts, per_host,
+                                          rule="chooseleaf_indep"))
+    rule = dict(ec["rules"][0], id=1, name="erasure_rule")
+    out["rules"].append(rule)
+    return out
+
+
+def mon_phase(crushmap: dict, mode: str) -> dict:
+    """Three port monitors on localhost, each on a ``MonitorDBStore``
+    WAL in a fresh temporary directory, driven through a ``MonClient``
+    in ``mode`` (``crc``, or ``secure`` with one ``ClusterAuth``):
+    quorum, the 4096-OSD crush map, an EC profile, an EC pool and a
+    replicated pool of ``MON_PG_NUM`` PGs, config-keys, the log and the
+    read commands, every mutating command answered after its round
+    committed and every mon at the same version; then the leader is
+    killed, a new one elected and serving, and the killed mon restarted
+    from its WAL catches up.  Returns the timings."""
+    from ceph_tpu_torch.core import auth as A
+    from ceph_tpu_torch.mon import MonClient, MonitorDBStore, Monitor, MonMap
+    from ceph_tpu_torch.msg import EntityAddr
+    tmp = tempfile.mkdtemp(prefix="ctt_mon_")
+    auth = A.ClusterAuth(b"mon-phase secret") if mode == "secure" else None
+    ports = free_ports(3)
+    monmap = MonMap(mons={r: EntityAddr("127.0.0.1", p)
+                          for r, p in enumerate(ports)})
+    wals = [os.path.join(tmp, f"mon{r}.wal") for r in range(3)]
+    mons = [Monitor(r, monmap, store=MonitorDBStore(wals[r]), auth=auth)
+            for r in range(3)]
+    mc = None
+    out = {"mode": mode, "fs": fs_type(tmp),
+           "aead": "AESGCM" if A.AESGCM is not None else "HMAC-SHA256"}
+    try:
+        t0 = time.perf_counter()
+        for m in mons:
+            m.start()
+        wait_until(lambda: any(m.is_leader and m.paxos.is_writeable()
+                               for m in mons) and all(
+            sorted(m.quorum) == [0, 1, 2] for m in mons), 30,
+            f"a {mode} quorum of the three mons")
+        out["election_ms"] = (time.perf_counter() - t0) * 1e3
+        leader = next(m for m in mons if m.is_leader)
+        out["quorum"] = sorted(leader.quorum)
+        mc = MonClient(monmap, auth=auth)
+        commit_ms = []
+
+        def command(cmd, mutating):
+            before = leader.paxos.last_committed
+            t = time.perf_counter()
+            rc, outs, res = mc.command(cmd, timeout=60)
+            dt = (time.perf_counter() - t) * 1e3
+            if rc != 0:
+                fail(f"mon ({mode}): {cmd['prefix']} rc {rc}: {outs}")
+            if mutating:
+                if leader.paxos.last_committed <= before:
+                    fail(f"mon ({mode}): {cmd['prefix']} answered before "
+                         f"its round committed")
+                commit_ms.append(dt)
+                version = leader.paxos.last_committed
+                wait_until(lambda: all(m.paxos.last_committed >= version
+                                       for m in mons if m.running), 30,
+                           f"every mon at version {version} after "
+                           f"{cmd['prefix']}")
+            return res
+
+        command({"prefix": "osd setcrushmap", "crushmap": crushmap}, True)
+        command({"prefix": "osd erasure-code-profile set", "name": "ec83",
+                 "profile": [f"k={K}", f"m={M}", "plugin=jerasure",
+                             "technique=reed_sol_van"]}, True)
+        command({"prefix": "osd pool create", "pool": "ecpool",
+                 "pg_num": MON_EC_PG_NUM, "pool_type": "erasure",
+                 "erasure_code_profile": "ec83"}, True)
+        command({"prefix": "osd pool create", "pool": "rbd",
+                 "pg_num": MON_PG_NUM}, True)
+        command({"prefix": "config-key put", "key": "smoke/mode",
+                 "val": mode}, True)
+        if command({"prefix": "config-key get", "key": "smoke/mode"},
+                   False) != mode:
+            fail(f"mon ({mode}): config-key get returned another value")
+        command({"prefix": "log", "logtext": f"chip smoke {mode}"}, True)
+        dump = command({"prefix": "osd dump"}, False)
+        pools = {p["name"]: p for p in dump["pools"]}
+        if pools["rbd"]["pg_num"] != MON_PG_NUM or \
+                pools["ecpool"]["size"] != K + M:
+            fail(f"mon ({mode}): osd dump pools {pools}")
+        status = command({"prefix": "status"}, False)
+        if sorted(status["quorum"]) != [0, 1, 2]:
+            fail(f"mon ({mode}): status quorum {status['quorum']}")
+        health = command({"prefix": "health detail"}, False)
+        summary = command({"prefix": "pg summary"}, False)
+        if "health" not in health or "reported_pgs" not in summary:
+            fail(f"mon ({mode}): health detail / pg summary replies")
+        if leader.services["osdmap"].osdmap.crush.max_devices != \
+                crushmap["max_devices"]:
+            fail(f"mon ({mode}): the committed crush map lost devices")
+        wait_until(lambda: len({m.paxos.last_committed
+                                for m in mons}) == 1, 30,
+                   "every mon at the same paxos version")
+        out["version"] = leader.paxos.last_committed
+        out["commit_ms"] = commit_ms
+        # kill the leader: the two left elect one and serve
+        t0 = time.perf_counter()
+        killed = leader.rank
+        leader.shutdown()
+        rest = [m for m in mons if m.rank != killed]
+        wait_until(lambda: any(m.is_leader and m.paxos.is_writeable()
+                               for m in rest), 30, "a new leader")
+        out["reelection_ms"] = (time.perf_counter() - t0) * 1e3
+        leader = next(m for m in rest if m.is_leader)
+        command({"prefix": "config-key put", "key": "smoke/after",
+                 "val": "failover"}, True)
+        out["new_leader"] = leader.rank
+        version = leader.paxos.last_committed
+        # restart the killed mon from its WAL: it catches up
+        t0 = time.perf_counter()
+        store = MonitorDBStore(wals[killed])
+        out["replay_ms"] = (time.perf_counter() - t0) * 1e3
+        out["wal_MiB"] = os.path.getsize(wals[killed]) / 2**20
+        revived = Monitor(killed, monmap, store=store, auth=auth)
+        mons[killed] = revived
+        if revived.paxos.last_committed >= version:
+            fail(f"mon ({mode}): the killed mon was not behind")
+        revived.start()
+        wait_until(lambda: revived.paxos.last_committed >= version, 30,
+                   "the restarted mon to catch up")
+        out["catch_up_ms"] = (time.perf_counter() - t0) * 1e3
+        out["caught_up_to"] = version
+        if revived.store.get_str("svc_config", "smoke/after") != "failover":
+            fail(f"mon ({mode}): the restarted mon lacks the new round")
+    finally:
+        if mc is not None:
+            mc.shutdown()
+        for m in mons:
+            if m.running:
+                m.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def pgmap_fold_args(torch, dev, n: int, n_states: int, ages: str,
+                    seed: int):
+    """K11's arguments for ``n`` PGs on ``dev``: (sid, stamp, now,
+    objects, missing, backfill, scrub errors, hist_len).  ``ages``:
+    ``mix`` (fresh, stale, exactly the grace, NaN and negative ages),
+    ``stale`` (all stale) or ``fresh`` (all fresh)."""
+    from ceph_tpu_torch.mon.pgmap import PG_STALE_GRACE
+    rng = np.random.default_rng(seed)
+    now = 1.75e9
+    age = {"mix": rng.choice([0.0, 1.5, PG_STALE_GRACE, 7.0, 60.0,
+                              -3.0, np.nan], n),
+           "stale": rng.uniform(PG_STALE_GRACE + 1, 600.0, n),
+           "fresh": rng.uniform(0.0, PG_STALE_GRACE, n)}[ages]
+    cols = [rng.integers(0, n_states, n), now - age,
+            rng.integers(0, 2000, n), rng.integers(0, 50, n),
+            rng.integers(0, 200, n), rng.integers(0, 5, n)]
+    t = [torch.from_numpy(a).to(dev) for a in cols]
+    return (t[0], t[1], now, *t[2:], 2 * n_states)
+
+
+def controlplane_phase(dev, n_osds: int, pg_num: int, sample: int) -> dict:
+    """``ScaleHarness(placement="crush")`` at ``n_osds`` x ``pg_num`` on
+    ``dev`` (the pool mapped by K7), its placements held against the
+    plain mapper on ``sample`` PGs, the health pass (best of 5), the
+    ``pg summary`` payload, and the summary fold on the card (K11) held
+    equal to the numpy fold, also with 1% stale PGs and NaN stamps."""
+    import torch
+    from ceph_tpu_torch.crush import straw2 as K7
+    from ceph_tpu_torch.crush.torch_mapper import BatchMapper
+    from ceph_tpu_torch.vstart import ScaleHarness
+    out = {}
+    t0 = time.perf_counter()
+    h = ScaleHarness(n_osds=n_osds, pg_num=pg_num, seed=1,
+                     placement="crush", device=dev)
+    out["build_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    rows = np.sort(rng.choice(pg_num, size=sample, replace=False))
+    pps = h.pool.raw_pg_to_pps_batch(rows.astype(np.uint32))
+    plain = BatchMapper(h.osdmap.crush, h.pool.crush_rule,
+                        result_max=h.pool.size, device=dev)
+    plain._straw2 = K7.straw2_plain
+    want = plain(pps, np.asarray(h.osdmap.osd_weight, dtype=np.uint32))
+    if not np.array_equal(h.placements[rows], want):
+        fail("controlplane: crush placements differ from the plain mapper")
+    h.evaluate()                        # warm interning and caches
+    best = float("inf")
+    for _ in range(5):
+        t = time.perf_counter()
+        checks = h.evaluate()
+        best = min(best, time.perf_counter() - t)
+    out["health_ms"] = best * 1e3
+    out["codes"] = sorted(c["code"] for c in checks)
+    if not {"PG_DEGRADED", "PG_DAMAGED", "PG_NOT_SCRUBBED"} <= \
+            set(out["codes"]):
+        fail(f"controlplane: health codes {out['codes']}")
+    t = time.perf_counter()
+    s = h.summary()
+    out["summary_ms"] = (time.perf_counter() - t) * 1e3
+    if s["reported_pgs"] != pg_num or sum(
+            s["pools"][str(h.pool.id)]["by_state"].values()) != pg_num:
+        fail("controlplane: pg summary does not cover every PG")
+    stale = ScaleHarness(n_osds=n_osds, pg_num=pg_num, seed=2,
+                         stale_frac=0.01)
+    nan_rows = np.random.default_rng(4).choice(pg_num, pg_num // 100,
+                                               replace=False)
+    for label, pgm in (("as built", h.pgmap), ("1% stale", stale.pgmap),
+                       ("1% stale, 1% NaN stamps", stale.pgmap)):
+        if label.endswith("stamps"):
+            pgm._cols["stamp"][nan_rows] = np.nan
+        t = time.perf_counter()
+        host = pgm.summary_arrays(h.now)
+        np_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = pgm.summary_arrays(h.now, use_device=True, device=dev)
+        dev_ms = (time.perf_counter() - t) * 1e3
+        if not np.array_equal(card["state_stale_hist"],
+                              host["state_stale_hist"]) or any(
+                card[k] != host[k] for k in host if k != "state_stale_hist"):
+            fail(f"controlplane: the device fold differs from the numpy "
+                 f"fold ({label})")
+        out.setdefault("folds", []).append(
+            {"label": label, "numpy_ms": np_ms, "device_ms": dev_ms,
+             "stale": int(card["state_stale_hist"][1::2].sum())})
+    # the device fold's copy-in alone: the six columns to the card
+    n = h.pgmap._n
+    cols = [h.pgmap._cols[c][:n] for c in (
+        "state", "stamp", "num_objects", "missing", "backfill_remaining",
+        "scrub_errors")]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    on_card = [torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+               for c in cols]
+    torch.cuda.synchronize()
+    out["copy_in_ms"] = (time.perf_counter() - t) * 1e3
+    out["copy_MiB"] = sum(c.nbytes for c in cols) / 2**20
+    out["fold_args"] = (on_card[0], on_card[1], h.now, *on_card[2:],
+                        2 * len(h.pgmap._state_names))
+    return out
+
+
 def time_plain(torch, fn, iters: int = 2) -> float:
     """Mean ms per call of a plain version over ``iters`` calls, CUDA
     events, warm (the plain versions upload tables; no graph)."""
@@ -1031,6 +1330,7 @@ def main():
         from ceph_tpu_torch.scrub import crc32c as C
         from ceph_tpu_torch.scrub import engine as S
         from ceph_tpu_torch.tools import ec_bench
+        from ceph_tpu_torch.mon import pgmap as PG
     except ImportError as e:
         fail(f"ceph_tpu_torch is not importable beside chip_smoke.py: {e}")
     dev = torch.device("cuda", 0)
@@ -1056,7 +1356,8 @@ def main():
     lib_path = build.build(verbose=True)
     build.library()
     for stem in ("gf_words", "gf_bytes", "gf_planes", "crc32c_batch",
-                 "gf2_packets", "crush_straw2", "gear_hash", "run_starts"):
+                 "gf2_packets", "crush_straw2", "gear_hash", "run_starts",
+                 "pgmap_fold"):
         for line in build.ptxas_report(stem):
             log(f"[ptxas] {stem}.cu {line}")
     # K7's operations bound: one item of its loop as compiled, on the
@@ -1128,6 +1429,8 @@ def main():
                                           dtype=np.uint32).view(np.int32)
                              ).to(dev)
     words_in = shapes["gf_words"].view(torch.int32)
+    # K11 at the controlplane's shape: 2^20 PGs of the harness's 7 states
+    fold_args = pgmap_fold_args(torch, dev, CP_PGS, 7, "mix", seed=11)
     # device tables held across calls, as the engines hold them, so a
     # timed call is the launch alone
     tables = {}
@@ -1157,11 +1460,15 @@ def main():
                       lambda: CH.gear_hashes_plain(shapes["gear_hash"])),
         "run_starts": (lambda: CO.run_starts(shapes["run_starts"]),
                        lambda: CO.run_starts_plain(shapes["run_starts"])),
+        "pgmap_fold": (lambda: PG.summary_fold(*fold_args),
+                       lambda: PG._summary_fold_plain(*fold_args)),
     }
     errs = {}
     for name, (kern, plain) in runs.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        if isinstance(got, tuple):              # K11: histogram and sums
+            got, want = torch.cat(got), torch.cat(want)
         errs[name] = max_abs_err(torch, got, want)
         log(f"[check] {name} {tuple(got.shape)} max_abs_err {errs[name]}")
         if errs[name]:
@@ -1311,6 +1618,26 @@ def main():
         if err:
             fail(f"{label} disagrees with its plain version")
     torch.cuda.synchronize()
+    # K11: row counts around a warp, a block and the grid stride,
+    # hist_len 2 and above the shared-memory cap (global atomics), NaN,
+    # exactly-the-grace and negative ages, all stale and all fresh
+    fold_cases = [(n, 7, "mix") for n in FOLD_EDGE_ROWS] + [
+        (65537, 1, "mix"), (65537, PG.FOLD_SHARED_CAP // 2 + 1, "mix"),
+        (CP_PGS, PG.FOLD_SHARED_CAP // 2 + 1, "mix"),
+        (CP_PGS, 7, "stale"), (CP_PGS, 7, "fresh")]
+    for n, n_states, ages in fold_cases:
+        args = pgmap_fold_args(torch, dev, n, n_states, ages, seed=n)
+        got = torch.cat(PG.summary_fold(*args))
+        want = torch.cat(PG._summary_fold_plain(*args))
+        torch.cuda.synchronize()
+        if max_abs_err(torch, got, want):
+            fail(f"pgmap_fold disagrees at n={n} hist_len={2 * n_states} "
+                 f"ages={ages}")
+    log(f"[check] pgmap_fold edge shapes (n "
+        f"{'/'.join(map(str, FOLD_EDGE_ROWS))} and {CP_PGS}, hist_len 2, "
+        f"14 and {PG.FOLD_SHARED_CAP + 2} > the shared cap, NaN / "
+        f"exactly-the-grace / negative ages, all stale, all fresh) "
+        f"max_abs_err 0")
     phase_done("kernel checks, other launch shapes")
 
     # -- 3. the main path, counted ------------------------------------------
@@ -1589,6 +1916,30 @@ def main():
         store.pop("totals")
     log(json.dumps({"store": store}))
 
+    crushmap = mon_crushmap(CRUSH_HOSTS, CRUSH_PER_HOST)
+    mon_runs = [mon_phase(crushmap, mode) for mode in ("crc", "secure")]
+    close_phase("mon")
+    for run in mon_runs:
+        ms = sorted(run["commit_ms"])
+        aead = run["aead"] if run["mode"] == "secure" else "no"
+        log(f"[mon] {run['mode']} ({aead} AEAD): 3 mons on 127.0.0.1, "
+            f"WALs on {run['fs']}; quorum "
+            f"{run['quorum']} elected in {run['election_ms']:.1f} ms; "
+            f"{len(ms)} mutating commands (osd setcrushmap of "
+            f"{crushmap['max_devices']} OSDs, erasure-code-profile k={K} "
+            f"m={M}, EC pool of {MON_EC_PG_NUM} PGs, replicated pool of "
+            f"{MON_PG_NUM} PGs, config-key, log) each answered after its "
+            f"round committed: commit ms median {ms[len(ms) // 2]:.1f}, "
+            f"max {ms[-1]:.1f} (host clock); every mon at paxos version "
+            f"{run['version']}; leader killed, mon.{run['new_leader']} "
+            f"elected in {run['reelection_ms']:.1f} ms and serving; the "
+            f"killed mon's WAL ({run['wal_MiB']:.2f} MiB) replayed in "
+            f"{run['replay_ms']:.1f} ms; restarted, it caught up to the "
+            f"quorum's version {run['caught_up_to']} in "
+            f"{run['catch_up_ms']:.1f} ms")
+    cp = controlplane_phase(dev, CP_OSDS, CP_PGS, CP_SAMPLE)
+    close_phase("controlplane")
+
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
     log(f"[launches] {json.dumps(phase_counts)}")
@@ -1603,7 +1954,9 @@ def main():
                         ("fingerprint", "crc32c_batch"),
                         ("crushtool", "crush_straw2"),
                         ("store", "gf_words"),
-                        ("store", "crc32c_batch")):
+                        ("store", "crc32c_batch"),
+                        ("controlplane", "crush_straw2"),
+                        ("controlplane", "pgmap_fold")):
         if phase_counts[phase][name] <= 0:
             fail(f"kernel {name} was not launched on its phase {phase}")
 
@@ -1720,7 +2073,14 @@ def main():
         "run_starts": (2 * shapes["run_starts"].numel(),
                        shapes["run_starts"].numel(),
                        INT_OPS_PER_SM * sms * sm_hz),
+        # read 48 bytes a PG, write the histogram and the sums; about six
+        # integer operations a PG on the int32 lanes
+        "pgmap_fold": (48 * CP_PGS + 8 * (cp["fold_args"][-1] + 5),
+                       6 * CP_PGS, INT_OPS_PER_SM * sms * sm_hz),
     }
+    # K11 is timed on the controlplane harness's own columns
+    runs["pgmap_fold"] = (lambda: PG.summary_fold(*cp["fold_args"]),
+                          lambda: PG._summary_fold_plain(*cp["fold_args"]))
     rs_in = shapes["run_starts"]
     library = {
         # the one PyTorch call of the same compare (column 0 aside)
@@ -1767,7 +2127,8 @@ def main():
         b_ms, b_by = bound(*work[name])
         k = build.KERNELS[name]
         shape = (k7_shape if name == "crush_straw2" else words_in.shape
-                 if name == "gf_words" else shapes[name].shape)
+                 if name == "gf_words" else [CP_PGS]
+                 if name == "pgmap_fold" else shapes[name].shape)
         entries.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[name],
@@ -1808,6 +2169,20 @@ def main():
             f"windows (spread {lo:.4f}-{hi:.4f} ms); {wall:.4f} ms host "
             f"wall per call on {card}")
     log(f"[clocks] after timing: {clocks()}")
+    fold_ms = next(e["ms"] for e in entries if e["name"] == "pgmap_fold")
+    folds = "; ".join(
+        f"{f['label']}: numpy fold {f['numpy_ms']:.2f} ms, device fold "
+        f"{f['device_ms']:.2f} ms ({f['stale']} stale)" for f in cp["folds"])
+    log(f"[controlplane] ScaleHarness {CP_OSDS} OSDs x {CP_PGS} PGs, "
+        f"placement crush on {dev.type} ({cp['build_s']:.2f} s to build, "
+        f"{phase_counts['controlplane']['crush_straw2']} crush_straw2 "
+        f"launches; {CP_SAMPLE} sampled PGs equal the plain mapper): "
+        f"health {cp['health_ms']:.2f} ms best of 5 (bar "
+        f"{HEALTH_BAR_MS:.0f} ms, reported only), codes {cp['codes']}; "
+        f"summary {cp['summary_ms']:.2f} ms; {folds} (host clock, the "
+        f"device fold with its {cp['copy_MiB']:.0f} MiB copy-in of "
+        f"{cp['copy_in_ms']:.2f} ms); pgmap_fold {fold_ms:.4f} ms graph-"
+        f"timed on {card}")
     phase_done("timings")
     # the host against the device, lane by lane: the profiler's dispatch
     # (host time to enqueue, staging included), compute (the host's wait

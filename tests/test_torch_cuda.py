@@ -426,3 +426,53 @@ def test_store_phase_crash_leg_on_the_card(dev):
     assert out["kicks"] == out["flushes"] == out["spans"] == 2
     assert after["gf_words"] > before["gf_words"]
     assert after["crc32c_batch"] > before["crc32c_batch"]
+
+
+def _fold_args(dev, n, n_states, ages):
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke.pgmap_fold_args(torch, dev, n, n_states, ages,
+                                      seed=n)
+
+
+@pytest.mark.parametrize("n,n_states,ages", [
+    (1 << 20, 7, "mix"), (1, 7, "mix"), (31, 7, "mix"), (32, 7, "mix"),
+    (33, 7, "mix"), (1023, 7, "mix"), (65537, 7, "mix"),
+    (65537, 1, "mix"), (65537, 4097, "mix"), (1 << 20, 4097, "mix"),
+    (1 << 20, 7, "stale"), (1 << 20, 7, "fresh")])
+def test_pgmap_fold_matches_plain(dev, n, n_states, ages):
+    """K11 exactly equal to its plain version at the smoke's phase-2
+    shapes: both branches (the shared histogram up to
+    FOLD_SHARED_CAP bins, global atomics above it)."""
+    from ceph_tpu_torch.mon import pgmap as PG
+    assert (2 * 4097 > PG.FOLD_SHARED_CAP) and (14 <= PG.FOLD_SHARED_CAP)
+    args = _fold_args(dev, n, n_states, ages)
+    before = PG.PGMAP_FOLD.launches
+    hist, sums = PG.summary_fold(*args)
+    assert PG.PGMAP_FOLD.launches == before + 1
+    want_hist, want_sums = PG._summary_fold_plain(*args)
+    assert torch.equal(hist, want_hist) and torch.equal(sums, want_sums)
+    assert int(hist.sum()) + int(sums[4]) == n
+
+
+def test_summary_arrays_on_the_card_equal_numpy(dev):
+    from ceph_tpu_torch.vstart import ScaleHarness
+    h = ScaleHarness(n_osds=64, pg_num=16384, seed=11, stale_frac=0.01)
+    h.pgmap._cols["stamp"][::97] = np.nan
+    host = h.pgmap.summary_arrays(h.now)
+    card = h.pgmap.summary_arrays(h.now, use_device=True)
+    assert np.array_equal(card["state_stale_hist"],
+                          host["state_stale_hist"])
+    assert {k: v for k, v in card.items() if k != "state_stale_hist"} == \
+        {k: v for k, v in host.items() if k != "state_stale_hist"}
+
+
+def test_scale_harness_crush_placement_on_the_card(dev):
+    from ceph_tpu_torch.vstart import ScaleHarness
+    kw = dict(n_osds=64, pg_num=4096, seed=5, placement="crush")
+    card = ScaleHarness(**kw)
+    cpu = ScaleHarness(**kw, device="cpu")
+    assert np.array_equal(card.placements, cpu.placements)
+    assert card.evaluate() == cpu.evaluate()

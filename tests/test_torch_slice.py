@@ -42,6 +42,7 @@ from ceph_tpu_torch.scrub import crc32c as C
 from ceph_tpu_torch.scrub import engine as S
 from ceph_tpu_torch.scrub.engine import ScrubEngine
 from ceph_tpu_torch.utils.device import resolve_device
+from ceph_tpu_torch.vstart import ScaleHarness
 
 # the suite shares the CPU with timing-sensitive cluster tests: keep
 # torch's intra-op pool from spinning on every core
@@ -168,7 +169,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: C.crc32c_batch(np.zeros((2, 8), np.uint8)),
                  lambda: CH.fingerprints_batch([b"abc"]),
                  lambda: BatchMapper(crushmap_from_dict(crushmap_to_dict(
-                     build_hierarchy(1, 2, 2))), 0, result_max=2)):
+                     build_hierarchy(1, 2, 2))), 0, result_max=2),
+                 lambda: ScaleHarness(n_osds=8, pg_num=64).pgmap
+                 .summary_arrays(0.0, use_device=True),
+                 lambda: ScaleHarness(n_osds=8, pg_num=64,
+                                      placement="crush")):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu").type == "cpu"
@@ -247,7 +252,8 @@ def test_kernel_launch_path_raises_without_its_library(monkeypatch):
 def test_every_kernel_is_registered_with_its_source():
     assert set(build.KERNELS) == {"gf_words", "gf_expand", "gf_planes",
                                   "crc32c_batch", "gf_bytes", "gf2_packets",
-                                  "crush_straw2", "gear_hash", "run_starts"}
+                                  "crush_straw2", "gear_hash", "run_starts",
+                                  "pgmap_fold"}
     for kern in build.KERNELS.values():
         assert (REPO / kern.source).exists()
         path, line = kern.replaces.split(":")
@@ -258,17 +264,18 @@ def test_every_kernel_is_registered_with_its_source():
 
 def test_ctypes_signatures_match_the_c_entries():
     """Each C entry's parameters, as the source declares them, agree in
-    number and kind (pointer, int, long long) with its ctypes argtypes:
-    a mismatch would only show on the card."""
+    number and kind (pointer, int, long long, double) with its ctypes
+    argtypes: a mismatch would only show on the card."""
     import re
-    kinds = {build._P: "p", build._I: "i", build._L: "l"}
+    kinds = {build._P: "p", build._I: "i", build._L: "l", build._D: "d"}
     found = {}
     for src in build._sources():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (ctt_\w+)\(([^)]*)\)', text):
             params = [q.strip() for q in m.group(2).split(",")]
             found[m.group(1)] = "".join(
-                "p" if "*" in q else "l" if "long long" in q else "i"
+                "p" if "*" in q else "l" if "long long" in q
+                else "d" if q.startswith("double") else "i"
                 for q in params)
     assert set(found) == set(build._SIGNATURES)
     for name, args in build._SIGNATURES.items():
