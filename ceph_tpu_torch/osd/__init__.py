@@ -1,1 +1,2 @@
-"""OSD data plane of the port (the batch engine)."""
+"""OSD side of the port: the batch engine, the OSDMap, the PG types
+and the op schedulers."""

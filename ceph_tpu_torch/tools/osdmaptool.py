@@ -7,14 +7,16 @@ time, single-threaded; here a pool's whole PG batch maps through the
 port's `BatchMapper`, one K7 straw2 launch per descent level on the
 card (``--device``, default ``cuda``; ``--device cpu`` runs the plain
 versions).  ``--scalar`` maps with the scalar oracle instead; it is
-never taken on its own.  ``ceph_tpu``'s ``--upmap`` needs the balancer,
-which the port does not have yet.
+never taken on its own.  ``--upmap FILE`` runs the upmap balancer
+(``mgr.balancer.UpmapBalancer``) on the same engine and writes its
+proposed ``ceph osd pg-upmap-items`` commands to FILE.
 
 Usage::
 
     osdmaptool --createsimple 256 map.json --pg-bits 6
     osdmaptool map.json --test-map-pgs [--pool 0] [--device cpu]
     osdmaptool map.json --test-map-object foo --pool 0
+    osdmaptool map.json --upmap out.txt [--upmap-pool 0] [--upmap-max 100]
     osdmaptool map.json --mark-out 3 -o map2.json
     osdmaptool map.json --export-crush crush.json
 """
@@ -264,6 +266,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mark-up-in", action="store_true")
     p.add_argument("--export-crush", metavar="FILE")
     p.add_argument("--import-crush", metavar="FILE")
+    p.add_argument("--upmap", metavar="FILE",
+                   help="run the upmap balancer, write the proposed "
+                        "`osd pg-upmap-items` commands to FILE")
+    p.add_argument("--upmap-pool", type=int, default=None)
+    p.add_argument("--upmap-max", type=int, default=100)
     p.add_argument("--scalar", action="store_true",
                    help="map with the scalar Python oracle")
     p.add_argument("--require-batched", action="store_true",
@@ -340,6 +347,35 @@ def main(argv=None) -> int:
         except BatchedRequired as e:
             print(e, file=sys.stderr)
             return 2
+    if args.upmap:
+        # reference `osdmaptool --upmap out.txt`: emit the balancer's
+        # proposed commands (and keep them applied in -o output)
+        from ..mgr.balancer import UpmapBalancer
+        if args.require_batched and args.scalar:
+            print("osdmaptool: --require-batched with --scalar",
+                  file=sys.stderr)
+            return 2
+        pools = ([args.upmap_pool] if args.upmap_pool is not None
+                 else list(m.pools))
+        lines = []
+        for pid in pools:
+            try:
+                bal = UpmapBalancer(m, pid, scalar=args.scalar,
+                                    device=args.device)
+                before = bal.stddev()
+                props = bal.optimize(max_changes=args.upmap_max)
+            except BatchedRequired as e:
+                print(e, file=sys.stderr)
+                return 2
+            for pgid, items in sorted(props.items(),
+                                      key=lambda kv: str(kv[0])):
+                pairs = " ".join(f"{a} {b}" for a, b in items)
+                lines.append(f"ceph osd pg-upmap-items {pgid} {pairs}")
+            print(f"pool {pid}: stddev {before:.2f} -> "
+                  f"{bal.stddev():.2f}, {len(props)} changes")
+        with open(args.upmap, "w") as f:
+            f.write("\n".join(lines) + ("\n" if lines else ""))
+        dirty = True
     if dirty and args.out_file:
         save_osdmap(m, args.out_file)
         print(f"osdmaptool: writing epoch {m.epoch} to {args.out_file}")

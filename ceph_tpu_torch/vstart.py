@@ -2,8 +2,7 @@
 
 The port's copy of ``ceph_tpu.vstart``, so far only ``ScaleHarness``:
 the million-PG control plane without daemons.  ``MiniCluster`` waits
-for the OSD daemon and ``osdc``; ``ScaleHarness.balancer`` waits for
-``mgr/balancer.py``.
+for the OSD daemon.
 """
 
 from __future__ import annotations
@@ -17,9 +16,9 @@ class ScaleHarness:
     Stands up the mon/mgr aggregation state (OSDMap + array PGMap +
     per-OSD stats) for ``n_osds``/``pg_num`` directly, the way a
     vstart cluster would look after every OSD reported once, so the
-    health/summary passes can be exercised and timed at scales no
-    in-process cluster could reach (4096 OSDs, 2^20 PGs).  Placement
-    is either one batched CRUSH evaluation of the whole pool
+    health/summary/balancer passes can be exercised and timed at
+    scales no in-process cluster could reach (4096 OSDs, 2^20 PGs).
+    Placement is either one batched CRUSH evaluation of the whole pool
     (``placement="crush"``: the port's ``BatchMapper`` on ``device``,
     ``None`` meaning the card, raising without one) or collision-free
     uniform sampling (``"synthetic"``, the default — mapping cost
@@ -166,3 +165,11 @@ class ScaleHarness:
         lm.osd_stats = {o: dict(st)
                         for o, st in self.pgmap.osd_stats.items()}
         return lm
+
+    def balancer(self):
+        """UpmapBalancer over the injected placements (no CRUSH
+        recompute); pick the round implementation via
+        ``optimize(use_arrays=...)``."""
+        from .mgr.balancer import UpmapBalancer
+        return UpmapBalancer(self.osdmap, self.pool.id,
+                             placements=self.placements)

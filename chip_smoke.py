@@ -97,6 +97,16 @@ time):
      ``store`` JSON line (objects, MiB, records, fsyncs, kicks, flushes,
      append / framing / CRC / replay ms, the host CRC's path and MiB/s,
      spans, the lane's device profiler split);
+   - balancer (``balancer_phase``): the crush phase's 64 x 64
+     hierarchy with every OSD up and one size-3 replicated pool of 2^20
+     PGs (``chooseleaf_firstn host``); ``UpmapBalancer(m, 0,
+     device=cuda)`` maps it through K7, every PG equal to the plain
+     mapper on the card; ``optimize(max_changes=10)`` equal to a twin
+     balancer over the plain placements, the stddev down, no PG with
+     two replicas on a host; ``osdmaptool --upmap --upmap-max 10
+     --device cuda`` as a process on the same map file writes the same
+     commands; one ``[balancer]`` line (mapping ms and launches, round
+     ms, stddev before and after, the tool's wall);
    - mon (``mon_phase``), in ``crc`` and then in ``secure`` mode (one
      ``ClusterAuth``; the line names the AEAD branch that ran): three
      port ``Monitor``s on 127.0.0.1 ephemeral ports, each on a
@@ -109,12 +119,23 @@ time):
      after its Paxos round committed, every mon at the same version;
      the leader killed, a new one elected and serving, the killed mon
      restarted from its WAL and caught up; one ``[mon]`` line a mode;
+     in ``crc`` mode, before the failover, the clients
+     (``client_steps``): ``monmaptool --create`` with the quorum's
+     addresses, one OSD's boot message (osd.4095, so the mon takes
+     upmaps to any of the 4096 OSDs), ``ceph -m`` status, osd tree,
+     osd pool ls, osd pool create, osd dump (in process,
+     ``main(argv)``), the balancer phase's 10 proposals applied to the
+     2^20-PG pool with ``ceph osd pg-upmap-items``, ``Rados.connect``
+     with its Objecter at the epoch that carries exactly those upmaps,
+     ``list_pools``, ``pool_lookup`` and ``rados lspools``; one
+     ``[clients]`` line of host-clock times;
    - controlplane (``controlplane_phase``, ``bench.py::
      _controlplane_leg``'s size): ``ScaleHarness(n_osds=4096,
      pg_num=2^20, seed=1, placement="crush")`` on the card (K7), 1024
      sampled placements against the plain mapper, ``evaluate()`` best
      of 5 beside the reference's 100 ms bar (reported, not gated),
-     ``summary()``, and ``summary_arrays(use_device=True)`` (K11) equal
+     ``summary()``, ``balancer().optimize(max_changes=10)`` over the
+     harness's placements (``balancer_round_ms@1M``), and ``summary_arrays(use_device=True)`` (K11) equal
      to the numpy fold, also at 1% stale PGs and with NaN stamps;
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
@@ -212,6 +233,8 @@ STORE_N, STORE_OBJ = 64, 4 << 20        # store phase: the write lane's width
 STORE_PGID, STORE_FLUSH_MS = "1.0", 5.0
 MON_PG_NUM, MON_EC_PG_NUM = 1 << 20, 4096  # mon phase: the pools created
 CP_OSDS, CP_PGS, CP_SAMPLE = 4096, 1 << 20, 1024  # _controlplane_leg
+BAL_PGS, BAL_MOVES = 1 << 20, 10        # balancer phase: pool, moves
+BOOT_OSD = CRUSH_HOSTS * CRUSH_PER_HOST - 1  # the mon phase's booted OSD
 HEALTH_BAR_MS = 100.0                   # bench.py:1567, reported only
 FOLD_EDGE_ROWS = (1, 31, 32, 33, 1023, 65537)   # K11 edge row counts
 
@@ -665,7 +688,7 @@ def run_tools(commands: dict) -> dict:
     for label, proc in procs.items():
         stdout, stderr = proc.communicate(timeout=600)
         if proc.returncode and stderr:
-            log(f"[store] {label}: {stderr.strip()[-2000:]}")
+            log(f"[tools] {label}: {stderr.strip()[-2000:]}")
         out[label] = (proc.returncode, stdout)
     return out
 
@@ -954,6 +977,128 @@ def free_ports(n: int) -> list[int]:
     return ports
 
 
+def upmap_lines(props: dict) -> list[str]:
+    """Proposals as ``osdmaptool --upmap`` writes them, one command a
+    PG in the order of the pgid's text."""
+    return [f"ceph osd pg-upmap-items {pgid} "
+            + " ".join(f"{a} {b}" for a, b in items)
+            for pgid, items in sorted(props.items(), key=lambda kv: str(
+                kv[0]))]
+
+
+def balancer_phase(dev, hosts: int, per_host: int, pg_num: int,
+                   moves: int) -> dict:
+    """The upmap balancer at full width: ``hosts`` x ``per_host`` OSDs
+    (the crush phase's hierarchy), every OSD up, one size-3 replicated
+    pool of ``pg_num`` PGs on ``chooseleaf_firstn host``.
+    ``UpmapBalancer(m, pool, device=dev)`` maps the pool through K7 (no
+    injected placements) and proposes ``moves`` moves; a twin balancer
+    over the plain mapper's placements (``straw2_plain`` on the card)
+    must propose the same; the whole K7 matrix equals the plain one; no
+    PG holds two replicas on a host after the moves; the stddev falls;
+    and ``osdmaptool --upmap --upmap-max moves --device cuda``, run as a
+    process on the same map file, writes the same commands."""
+    import torch
+    from ceph_tpu_torch.crush import straw2 as K7
+    from ceph_tpu_torch.crush.map import build_hierarchy
+    from ceph_tpu_torch.kernels import build
+    from ceph_tpu_torch.mgr import UpmapBalancer
+    from ceph_tpu_torch.osd.osdmap import EXISTS, UP, OSDMap
+    from ceph_tpu_torch.tools.osdmaptool import map_pool_pgs, save_osdmap
+
+    def k7_count():
+        return build.counts()["crush_straw2"]
+
+    def pool_map():
+        m = OSDMap(crush=build_hierarchy(1, hosts, per_host),
+                   max_osd=hosts * per_host)
+        m.epoch = 1
+        for o in range(m.max_osd):
+            m.osd_state[o] = EXISTS | UP
+        m.create_pool("bench", pg_num=pg_num, size=3, crush_rule=0)
+        return m
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        n, t = k7_count(), time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3, k7_count() - n
+
+    out = {}
+    m, twin_map = pool_map(), pool_map()
+    tmp = tempfile.mkdtemp(prefix="ctt_bal_")
+    try:
+        mapfile = os.path.join(tmp, "map.json")
+        save_osdmap(m, mapfile)              # before any move
+        pool = m.pools[0]
+        bal = UpmapBalancer(m, pool.id, device=dev)
+        raw, out["map_ms"], out["map_launches"] = timed(
+            lambda: map_pool_pgs(m, pool, device=dev))
+        raw = np.asarray(raw)
+        twin_map.batch_mapper(0, 3, device=dev)._straw2 = K7.straw2_plain
+        plain, out["plain_map_ms"], _ = timed(
+            lambda: np.asarray(map_pool_pgs(twin_map, twin_map.pools[0],
+                                            device=dev)))
+        if not np.array_equal(raw, plain):
+            bad = int((raw != plain).any(axis=1).sum())
+            fail(f"balancer: K7 placements differ from the plain mapper "
+                 f"on {bad} of {pg_num} PGs")
+        twin = UpmapBalancer(twin_map, 0, placements=plain)
+        out["stddev_before"], out["stddev_ms"], _ = timed(bal.stddev)
+        props, out["round_ms"], out["round_launches"] = timed(
+            lambda: bal.optimize(max_changes=moves))
+        out["stddev_after"] = bal.stddev()
+        # where a round's host time goes: the placement matrix (its
+        # mapping included), the targets, and one of the round's scans
+        # for the PGs on the fullest OSD, each once more on its own
+        mat, out["matrix_ms"], _ = timed(bal._placement_matrix)
+        _, out["targets_ms"], _ = timed(bal._targets)
+        _, out["scan_ms"], _ = timed(lambda: (mat == mat[0, 0]).any(axis=1))
+        if len(props) != moves:
+            fail(f"balancer: {len(props)} proposals, want {moves}")
+        if twin.stddev() != out["stddev_before"] or \
+                twin.optimize(max_changes=moves) != props or \
+                twin.stddev() != out["stddev_after"]:
+            fail("balancer: the proposals differ from those over the "
+                 "plain mapper's placements")
+        if not out["stddev_after"] < out["stddev_before"]:
+            fail(f"balancer: stddev {out['stddev_before']} -> "
+                 f"{out['stddev_after']} did not fall")
+        # every PG after the moves: replicas on distinct hosts
+        final = raw.astype(np.int64)
+        for pgid, items in props.items():
+            row = m._apply_upmap(pgid, [int(o) for o in raw[pgid.seed]])
+            final[pgid.seed] = row
+        dom = np.zeros(m.max_osd, dtype=np.int64)    # bucket ids are < 0
+        for o, d in bal._domain_of.items():
+            dom[o] = d
+        hosts_of = np.sort(dom[final], axis=1)
+        if (hosts_of == 0).any() or \
+                (hosts_of[:, 1:] == hosts_of[:, :-1]).any():
+            fail("balancer: a PG holds two replicas on one host")
+        # osdmaptool --upmap on the same map, as a process on the card
+        upfile = os.path.join(tmp, "upmap.txt")
+        t = time.perf_counter()
+        rc, stdout = run_tools({"--upmap": ("osdmaptool", [
+            mapfile, "--upmap", upfile, "--upmap-max", str(moves),
+            "--device", dev.type])})["--upmap"]
+        out["tool_s"] = time.perf_counter() - t
+        if rc:
+            fail(f"osdmaptool --upmap exited {rc}")
+        with open(upfile) as f:
+            lines = f.read().splitlines()
+        if lines != upmap_lines(props):
+            fail(f"osdmaptool --upmap wrote {lines[:3]}..., the balancer "
+                 f"proposed {upmap_lines(props)[:3]}...")
+        out["tool_stdout"] = stdout.strip()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["proposals"] = props
+    out["moves"] = len(props)
+    return out
+
+
 def mon_crushmap(hosts: int, per_host: int) -> dict:
     """The crush phase's map (``hosts`` x ``per_host`` OSDs) as a dict
     for ``osd setcrushmap``: its replicated rule (id 0) and its EC rule
@@ -969,16 +1114,125 @@ def mon_crushmap(hosts: int, per_host: int) -> dict:
     return out
 
 
-def mon_phase(crushmap: dict, mode: str) -> dict:
+def cli(tool, argv: list) -> tuple[int, str, str]:
+    """A CLI of the port run in process as ``main(argv)``: (exit code,
+    stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main([str(a) for a in argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def client_steps(monmap, leader, proposals: dict) -> dict:
+    """The clients against the port's quorum: ``monmaptool --create``
+    with the quorum's addresses; one OSD's boot message (``BOOT_OSD``,
+    so the map has ``BOOT_OSD + 1`` devices and the mon takes upmaps to
+    any of them); ``ceph -m`` status, osd tree, osd pool ls, osd pool
+    create, osd dump; the balancer phase's ``proposals`` applied to the
+    replicated pool ``rbd`` with ``ceph osd pg-upmap-items``; then
+    ``Rados(monmap).connect()``, whose Objecter must reach the epoch
+    that carries the upmaps and hold exactly them, ``list_pools``,
+    ``pool_lookup`` and ``rados lspools``.  Returns the host-clock
+    times."""
+    from ceph_tpu_torch.mon import MonClient
+    from ceph_tpu_torch.mon.messages import MOSDBoot
+    from ceph_tpu_torch.osd.osdmap import PGid
+    from ceph_tpu_torch.osdc.librados import Rados
+    from ceph_tpu_torch.tools import ceph, monmaptool, rados
+    out = {}
+    addrs = ",".join(f"{monmap.mons[r].host}:{monmap.mons[r].port}"
+                     for r in monmap.ranks())
+    svc = leader.services["osdmap"]
+    tmp = tempfile.mkdtemp(prefix="ctt_cli_")
+    boot = None
+    try:
+        mmfile = os.path.join(tmp, "monmap")
+        argv = ["--create"]
+        for r in monmap.ranks():
+            argv += ["--add", r, f"{monmap.mons[r].host}:"
+                                 f"{monmap.mons[r].port}"]
+        t = time.perf_counter()
+        rc, text, err = cli(monmaptool, argv + ["--print", mmfile])
+        out["monmaptool_ms"] = (time.perf_counter() - t) * 1e3
+        made = monmaptool.load_monmap(mmfile)
+        if rc or {r: (a.host, a.port) for r, a in made.mons.items()} != {
+                r: (a.host, a.port) for r, a in monmap.mons.items()}:
+            fail(f"monmaptool --create: rc {rc}, {text}{err}")
+        t = time.perf_counter()
+        boot = MonClient(monmap, entity=f"osd.{BOOT_OSD}")
+        boot.send(MOSDBoot(osd=BOOT_OSD, addr="127.0.0.1:7000"))
+        wait_until(lambda: svc.osdmap.max_osd > BOOT_OSD, 30,
+                   f"osd.{BOOT_OSD}'s boot in the committed map")
+        out["boot_ms"] = (time.perf_counter() - t) * 1e3
+        times = {}
+        for words in (["status"], ["osd", "tree"], ["osd", "pool", "ls"],
+                      ["osd", "pool", "create", "clipool", "--pg-num", 64],
+                      ["osd", "dump"]):
+            t = time.perf_counter()
+            rc, text, err = cli(ceph, ["-m", addrs, *words])
+            times[" ".join(map(str, words[:3]))] = \
+                (time.perf_counter() - t) * 1e3
+            if rc:
+                fail(f"ceph {' '.join(map(str, words))}: rc {rc}: {err}")
+        if "clipool" not in {p["name"] for p in json.loads(text)["pools"]}:
+            fail("ceph osd dump does not show the pool the CLI created")
+        out["ceph_ms"] = times
+        pool_id = svc.osdmap.pool_name["rbd"]
+        want = {PGid(pool_id, pg.seed): [tuple(p) for p in items]
+                for pg, items in proposals.items()}
+        t = time.perf_counter()
+        for line in upmap_lines(want):
+            rc, _text, err = cli(ceph, ["-m", addrs, *line.split()[1:]])
+            if rc:
+                fail(f"{line}: rc {rc}: {err}")
+        out["upmap_ms"] = (time.perf_counter() - t) * 1e3
+        epoch = svc.osdmap.epoch
+        t = time.perf_counter()
+        r = Rados(monmap).connect()
+        try:
+            out["connect_ms"] = (time.perf_counter() - t) * 1e3
+            o = r.objecter
+            wait_until(lambda: o.osdmap.epoch >= epoch, 30,
+                       f"the Objecter at epoch {epoch}")
+            out["objecter_ms"] = (time.perf_counter() - t) * 1e3
+            got = {pg: [tuple(p) for p in items]
+                   for pg, items in o.osdmap.pg_upmap_items.items()}
+            if got != want:
+                fail(f"the Objecter's pg_upmap_items {sorted(got)[:3]} "
+                     f"differ from the proposals {sorted(want)[:3]}")
+            pools = r.list_pools()
+            if sorted(pools) != sorted(["ecpool", "rbd", "clipool"]) or \
+                    r.pool_lookup("rbd") != pool_id:
+                fail(f"librados: list_pools {pools}, pool_lookup "
+                     f"{r.pool_lookup('rbd')} (want {pool_id})")
+        finally:
+            r.shutdown()
+        t = time.perf_counter()
+        rc, text, err = cli(rados, ["-m", addrs, "lspools"])
+        out["rados_ms"] = (time.perf_counter() - t) * 1e3
+        if rc or sorted(text.split()) != sorted(pools):
+            fail(f"rados lspools: rc {rc}: {text!r} {err}")
+        out["epoch"] = epoch
+        out["pool_id"] = pool_id
+    finally:
+        if boot is not None:
+            boot.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def mon_phase(crushmap: dict, mode: str, proposals: dict | None = None
+              ) -> dict:
     """Three port monitors on localhost, each on a ``MonitorDBStore``
     WAL in a fresh temporary directory, driven through a ``MonClient``
     in ``mode`` (``crc``, or ``secure`` with one ``ClusterAuth``):
     quorum, the 4096-OSD crush map, an EC profile, an EC pool and a
     replicated pool of ``MON_PG_NUM`` PGs, config-keys, the log and the
     read commands, every mutating command answered after its round
-    committed and every mon at the same version; then the leader is
-    killed, a new one elected and serving, and the killed mon restarted
-    from its WAL catches up.  Returns the timings."""
+    committed and every mon at the same version; with ``proposals``
+    (the balancer phase's), the clients of ``client_steps``; then the
+    leader is killed, a new one elected and serving, and the killed mon
+    restarted from its WAL catches up.  Returns the timings."""
     from ceph_tpu_torch.core import auth as A
     from ceph_tpu_torch.mon import MonClient, MonitorDBStore, Monitor, MonMap
     from ceph_tpu_torch.msg import EntityAddr
@@ -1056,6 +1310,8 @@ def mon_phase(crushmap: dict, mode: str) -> dict:
         if leader.services["osdmap"].osdmap.crush.max_devices != \
                 crushmap["max_devices"]:
             fail(f"mon ({mode}): the committed crush map lost devices")
+        if proposals is not None:
+            out["clients"] = client_steps(monmap, leader, proposals)
         wait_until(lambda: len({m.paxos.last_committed
                                 for m in mons}) == 1, 30,
                    "every mon at the same paxos version")
@@ -1161,6 +1417,22 @@ def controlplane_phase(dev, n_osds: int, pg_num: int, sample: int) -> dict:
     if s["reported_pgs"] != pg_num or sum(
             s["pools"][str(h.pool.id)]["by_state"].values()) != pg_num:
         fail("controlplane: pg summary does not cover every PG")
+    # bench.py::_controlplane_leg's balancer round, over the harness's
+    # placements (no mapping)
+    t = time.perf_counter()
+    b = h.balancer()
+    moves = b.optimize(max_changes=10, use_arrays=True)
+    out["balancer_round_ms@1M"] = (time.perf_counter() - t) * 1e3
+    out["balancer_moves"] = len(moves)
+    mat = b._placement_matrix()
+    for part, fn in (("matrix", b._placement_matrix),
+                     ("targets", b._targets),
+                     ("scan", lambda: (mat == mat[0, 0]).any(axis=1))):
+        t = time.perf_counter()
+        fn()
+        out[f"balancer_{part}_ms"] = (time.perf_counter() - t) * 1e3
+    if len(moves) != 10:
+        fail(f"controlplane: the balancer round made {len(moves)} moves")
     stale = ScaleHarness(n_osds=n_osds, pg_num=pg_num, seed=2,
                          stale_frac=0.01)
     nan_rows = np.random.default_rng(4).choice(pg_num, pg_num // 100,
@@ -1916,8 +2188,35 @@ def main():
         store.pop("totals")
     log(json.dumps({"store": store}))
 
+    bal = balancer_phase(dev, CRUSH_HOSTS, CRUSH_PER_HOST, BAL_PGS,
+                         BAL_MOVES)
+    close_phase("balancer")
+    log(f"[balancer] UpmapBalancer on {CRUSH_HOSTS} hosts x "
+        f"{CRUSH_PER_HOST} OSDs, a size-3 replicated pool of {BAL_PGS} PGs "
+        f"(chooseleaf_firstn host), every OSD up, mapped on {dev.type}: "
+        f"one mapping {bal['map_ms']:.1f} ms with {bal['map_launches']} "
+        f"crush_straw2 launches (the plain mapper on the card "
+        f"{bal['plain_map_ms']:.1f} ms; all {BAL_PGS} PGs equal); "
+        f"stddev() {bal['stddev_ms']:.1f} ms; optimize(max_changes="
+        f"{BAL_MOVES}) {bal['round_ms']:.1f} ms with "
+        f"{bal['round_launches']} launches (its own mapping included; "
+        f"alone, the placement matrix with its mapping "
+        f"{bal['matrix_ms']:.1f} ms, the targets {bal['targets_ms']:.1f} "
+        f"ms, one scan for the PGs on the fullest OSD "
+        f"{bal['scan_ms']:.1f} ms); "
+        f"stddev {bal['stddev_before']:.4f} -> {bal['stddev_after']:.4f}, "
+        f"{bal['moves']} moves equal to the twin over the plain "
+        f"placements, every PG on distinct hosts; "
+        f"{phase_counts['balancer']['crush_straw2']} crush_straw2 launches "
+        f"in the phase (host clock); osdmaptool --upmap --upmap-max "
+        f"{BAL_MOVES} --device cuda as a process: {bal['tool_s']:.2f} s "
+        f"wall (three mappings, the process start and its imports), its "
+        f"file equal to the proposals ({bal['tool_stdout']})")
+
     crushmap = mon_crushmap(CRUSH_HOSTS, CRUSH_PER_HOST)
-    mon_runs = [mon_phase(crushmap, mode) for mode in ("crc", "secure")]
+    mon_runs = [mon_phase(crushmap, mode, bal["proposals"]
+                          if mode == "crc" else None)
+                for mode in ("crc", "secure")]
     close_phase("mon")
     for run in mon_runs:
         ms = sorted(run["commit_ms"])
@@ -1937,6 +2236,17 @@ def main():
             f"{run['replay_ms']:.1f} ms; restarted, it caught up to the "
             f"quorum's version {run['caught_up_to']} in "
             f"{run['catch_up_ms']:.1f} ms")
+    cl = mon_runs[0]["clients"]
+    log(f"[clients] against the crc quorum (host clock): monmaptool "
+        f"--create {cl['monmaptool_ms']:.1f} ms; osd.{BOOT_OSD}'s boot "
+        f"message committed in {cl['boot_ms']:.1f} ms; ceph -m "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in cl["ceph_ms"].items())
+        + f"; {BAL_MOVES} ceph osd pg-upmap-items of the balancer's "
+        f"proposals on pool rbd (id {cl['pool_id']}) {cl['upmap_ms']:.1f} "
+        f"ms; Rados.connect {cl['connect_ms']:.1f} ms, its Objecter at "
+        f"epoch {cl['epoch']} with exactly those upmaps after "
+        f"{cl['objecter_ms']:.1f} ms; list_pools and pool_lookup agree; "
+        f"rados lspools {cl['rados_ms']:.1f} ms")
     cp = controlplane_phase(dev, CP_OSDS, CP_PGS, CP_SAMPLE)
     close_phase("controlplane")
 
@@ -1955,6 +2265,7 @@ def main():
                         ("crushtool", "crush_straw2"),
                         ("store", "gf_words"),
                         ("store", "crc32c_batch"),
+                        ("balancer", "crush_straw2"),
                         ("controlplane", "crush_straw2"),
                         ("controlplane", "pgmap_fold")):
         if phase_counts[phase][name] <= 0:
@@ -2179,7 +2490,13 @@ def main():
         f"launches; {CP_SAMPLE} sampled PGs equal the plain mapper): "
         f"health {cp['health_ms']:.2f} ms best of 5 (bar "
         f"{HEALTH_BAR_MS:.0f} ms, reported only), codes {cp['codes']}; "
-        f"summary {cp['summary_ms']:.2f} ms; {folds} (host clock, the "
+        f"summary {cp['summary_ms']:.2f} ms; balancer_round_ms@1M "
+        f"{cp['balancer_round_ms@1M']:.2f} ({cp['balancer_moves']} "
+        f"balancer_moves; alone, its placement matrix "
+        f"{cp['balancer_matrix_ms']:.2f} ms, its targets "
+        f"{cp['balancer_targets_ms']:.2f} ms, one scan for the PGs on the "
+        f"fullest OSD {cp['balancer_scan_ms']:.2f} ms); {folds} (host "
+        f"clock, the "
         f"device fold with its {cp['copy_MiB']:.0f} MiB copy-in of "
         f"{cp['copy_in_ms']:.2f} ms); pgmap_fold {fold_ms:.4f} ms graph-"
         f"timed on {card}")

@@ -174,6 +174,47 @@ def test_mapper_kernel_equals_plain(dev, rule):
     assert np.array_equal(got, want)
 
 
+def test_balancer_on_the_card_equals_plain_placements(dev):
+    """The upmap balancer maps its pool through K7 on the card; a twin
+    map balanced over the plain mapper's placements (straw2_plain on the
+    card) gets the same moves, and no move puts two replicas on a
+    host."""
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, build_hierarchy
+    from ceph_tpu_torch.mgr import UpmapBalancer
+    from ceph_tpu_torch.osd.osdmap import EXISTS, UP, OSDMap, PGid
+    from ceph_tpu_torch.tools.osdmaptool import map_pool_pgs
+
+    def hier():
+        m = OSDMap(crush=build_hierarchy(4, 8, 8), max_osd=256)
+        m.epoch = 1
+        for o in range(256):
+            m.osd_state[o] = EXISTS | UP
+        m.create_pool("bench", pg_num=4096, size=3, crush_rule=0)
+        return m
+
+    a, b = hier(), hier()
+    b.batch_mapper(0, 3, device=dev)._straw2 = K7.straw2_plain
+    plain = map_pool_pgs(b, b.pools[0], device=dev)
+    before = K7.CRUSH_STRAW2.launches
+    bal = UpmapBalancer(a, 0, device=dev)
+    twin = UpmapBalancer(b, 0, placements=plain)
+    assert np.array_equal(map_pool_pgs(a, a.pools[0], device=dev), plain)
+    assert bal.stddev() == twin.stddev()
+    for _ in range(8):
+        pa = bal.optimize(max_changes=32, deviation_stop=0.5)
+        assert pa == twin.optimize(max_changes=32, deviation_stop=0.5)
+        if not pa:
+            break
+    assert K7.CRUSH_STRAW2.launches > before
+    assert a.pg_upmap_items == b.pg_upmap_items and a.pg_upmap_items
+    assert bal.stddev() == twin.stddev()
+    for seed in range(4096):
+        row = [o for o in plain[seed] if o != CRUSH_ITEM_NONE]
+        row = a._apply_upmap(PGid(0, seed), row)
+        hosts = [bal._domain_of[o] for o in row]
+        assert len(hosts) == len(set(hosts))
+
+
 @pytest.mark.parametrize("out", [[], list(range(11)), list(range(12))])
 def test_multiblock_mapper_on_the_card(dev, out):
     """A two-root hybrid rule (one OSD from the first root, two from the

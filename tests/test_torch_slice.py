@@ -33,6 +33,7 @@ from ceph_tpu_torch.ec import bitmatrix as BM
 from ceph_tpu_torch.ec import create_erasure_code
 from ceph_tpu_torch.ec.torch_backend import MatrixECEngine
 from ceph_tpu_torch.kernels import build
+from ceph_tpu_torch.mgr import UpmapBalancer
 from ceph_tpu_torch.ops import gf_bytes as GB
 from ceph_tpu_torch.ops import gf_words as W
 from ceph_tpu_torch.ops import rs
@@ -41,6 +42,7 @@ from ceph_tpu_torch.osd.batch_engine import BatchEngine
 from ceph_tpu_torch.scrub import crc32c as C
 from ceph_tpu_torch.scrub import engine as S
 from ceph_tpu_torch.scrub.engine import ScrubEngine
+from ceph_tpu_torch.tools import osdmaptool
 from ceph_tpu_torch.utils.device import resolve_device
 from ceph_tpu_torch.vstart import ScaleHarness
 
@@ -148,9 +150,12 @@ def test_import_hygiene(path):
         assert top != "ceph_tpu", f"{path} imports {name}"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     coding = rs.reed_sol_van_matrix(4, 2)
+    mapfile = str(tmp_path / "m.json")
+    assert osdmaptool.main([mapfile, "--createsimple", "8",
+                            "--pg-bits", "1"]) == 0
     for make in (lambda: resolve_device(None),
                  lambda: create_erasure_code(PROFILE),
                  lambda: MatrixECEngine(coding, 4, 2),
@@ -173,9 +178,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: ScaleHarness(n_osds=8, pg_num=64).pgmap
                  .summary_arrays(0.0, use_device=True),
                  lambda: ScaleHarness(n_osds=8, pg_num=64,
-                                      placement="crush")):
+                                      placement="crush"),
+                 lambda: UpmapBalancer(osdmaptool.load_osdmap(mapfile), 0),
+                 lambda: osdmaptool.main([mapfile, "--upmap",
+                                          str(tmp_path / "out.upmap")])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # the balancer maps on the CPU only when asked to
+    bal = UpmapBalancer(osdmaptool.load_osdmap(mapfile), 0, device="cpu")
+    assert bal.device.type == "cpu" and bal.stddev() >= 0
+    assert osdmaptool.main([mapfile, "--upmap", str(tmp_path / "out.upmap"),
+                            "--device", "cpu"]) == 0
     assert resolve_device("cpu").type == "cpu"
     assert create_erasure_code(PROFILE, device="cpu").engine.device.type \
         == "cpu"
