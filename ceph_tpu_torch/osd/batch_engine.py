@@ -52,7 +52,7 @@ every lane flush; ``store_kick`` (``WALStore.kick``) is called once a
 flush, after its launches, so one group-commit fsync covers the
 flush's transactions (counted in the ``store_kicks`` stats).
 
-Not carried over: the mesh (one card; ROADMAP item 7).
+Not carried over: the mesh (one card; ROADMAP's multi-device item).
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from __future__ import annotations
 import collections
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -218,6 +219,9 @@ class BatchEngine:
             lane: [] for lane in self.LANES}
         self._pending_bytes = {lane: 0 for lane in self.LANES}
         self._armed = {lane: False for lane in self.LANES}
+        # when each lane's oldest pending op arrived (maybe_flush)
+        self._since: dict[str, float | None] = {
+            lane: None for lane in self.LANES}
         self._fused: dict = {}               # code key → GFEncodeDigest
         self._rexec: dict = {}               # recheck key → GFLinear
         self._plan_cache: dict = {}          # DecodePlan per erasure set
@@ -575,6 +579,8 @@ class BatchEngine:
         with self._lock:
             self._pending[lane].append(op)
             self._pending_bytes[lane] += op.nbytes
+            if self._since[lane] is None:
+                self._since[lane] = time.monotonic()
             n, nbytes = len(self._pending[lane]), self._pending_bytes[lane]
             if n >= max_ops:
                 fire = "max_ops"
@@ -591,6 +597,20 @@ class BatchEngine:
             self._schedule(
                 flush_ms / 1000.0,
                 lambda: self.flush(reason="deadline", lane=lane))
+
+    def maybe_flush(self) -> bool:
+        """Tick backstop: flush any lane whose oldest pending op has
+        waited past its deadline window (covers a lost/absent timer)."""
+        now = time.monotonic()
+        due = []
+        with self._lock:
+            for lane in self.LANES:
+                if self._pending[lane] and (now - self._since[lane]) \
+                        * 1000.0 >= self._lane_knobs(lane)[2]:
+                    due.append(lane)
+        for lane in due:
+            self.flush(reason="deadline", lane=lane)
+        return bool(due)
 
     # -- flush / dispatch --------------------------------------------------
 
@@ -620,6 +640,7 @@ class BatchEngine:
                 staged, self._pending_bytes[lane] = \
                     self._pending_bytes[lane], 0
                 self._armed[lane] = False
+                self._since[lane] = None
                 use_worker = (ms > 0 and not self._stopped
                               and not force_inline)
             if not pending:
@@ -1071,3 +1092,37 @@ class BatchEngine:
                 op.comp._fire(error=err)
             except Exception:       # noqa: BLE001
                 self.stats["callback_errors"] += 1
+
+    # -- introspection -----------------------------------------------------
+
+    def dump(self) -> dict:
+        """Stats and knobs (the daemon's ``dump_batch_engine``), with
+        ``ceph_tpu``'s keys; ``recon_use_mesh`` is always False (the
+        port has one card)."""
+        with self._lock:
+            pending = {lane: (len(self._pending[lane]),
+                              self._pending_bytes[lane])
+                       for lane in self.LANES}
+        d = dict(self.stats)
+        d.update(enabled=self.enabled, flush_ms=self.flush_ms,
+                 max_bytes=self.max_bytes, max_ops=self.max_ops,
+                 bucket_floor=self.bucket_floor,
+                 pending_ops=pending["write"][0],
+                 pending_bytes=pending["write"][1],
+                 recon_enabled=self.recon_enabled,
+                 recon_flush_ms=self.recon_flush_ms,
+                 recon_max_bytes=self.recon_max_bytes,
+                 recon_max_ops=self.recon_max_ops,
+                 recon_pending_ops=pending["recon"][0],
+                 recon_pending_bytes=pending["recon"][1],
+                 recon_use_mesh=False,
+                 recon_plans=len(self._plan_cache),
+                 comp_enabled=self.comp_enabled,
+                 comp_flush_ms=self.comp_flush_ms,
+                 comp_max_bytes=self.comp_max_bytes,
+                 comp_max_ops=self.comp_max_ops,
+                 comp_segment_bytes=self.comp_segment_bytes,
+                 comp_pending_ops=pending["comp"][0],
+                 comp_pending_bytes=pending["comp"][1],
+                 inflight=self._flights.unfinished_tasks)
+        return d

@@ -28,7 +28,7 @@ from ..mon.client import MonClient
 from ..msg import Dispatcher, EntityAddr, Messenger
 from ..osd import messages as M
 from ..osd.osdmap import OSDMap, PGid
-from ..tools.osdmaptool import osdmap_from_dict
+from ..tools.osdmaptool import shared_osdmap_from_dict
 
 
 class _Op:
@@ -256,7 +256,7 @@ class Objecter(Dispatcher):
         with self.lock:
             if epoch <= self.osdmap.epoch:
                 return
-            self.osdmap = osdmap_from_dict(map_dict)
+            self.osdmap = shared_osdmap_from_dict(map_dict)
             # a map advance releases backoffs from older epochs: the
             # blocked PG re-targets under the new map (and the OSD
             # re-blocks us if it still can't serve)

@@ -34,7 +34,7 @@ from ..crush.compiler import crushmap_from_dict, crushmap_to_dict
 from ..crush.map import CRUSH_ITEM_NONE
 from ..crush.mapper import do_rule
 from ..osd.osdmap import (EXISTS, UP, OSDMap, PGPool, PGid, TYPE_ERASURE,
-                          TYPE_REPLICATED)
+                          TYPE_REPLICATED, mapping_key)
 from ._engine import BatchedRequired, announce, declined
 
 
@@ -122,6 +122,18 @@ def osdmap_from_dict(d: dict) -> OSDMap:
         m.degraded_stretch_mode = bool(st.get("degraded", False))
         m.recovering_stretch_mode = bool(st.get("recovering", False))
         m.stretch_degraded_site = st.get("degraded_site", "")
+    return m
+
+
+def shared_osdmap_from_dict(d: dict) -> OSDMap:
+    """``osdmap_from_dict`` for a holder that never changes the map it
+    gets (an OSD daemon's or an Objecter's copy of the mon's epoch): the
+    map carries ``mapping_key``, so its raw PG mappings come from
+    ``osdmap._RAW_MEMO``, shared by every such map of the process whose
+    CRUSH map and reweights are the same.  The holder replaces the map
+    with the next epoch's and changes nothing in it."""
+    m = osdmap_from_dict(d)
+    m.mapping_key = mapping_key(d)
     return m
 
 

@@ -137,6 +137,22 @@ time):
      ``summary()``, ``balancer().optimize(max_changes=10)`` over the
      harness's placements (``balancer_round_ms@1M``), and ``summary_arrays(use_device=True)`` (K11) equal
      to the numpy fold, also at 1% stale PGs and with NaN stamps;
+   - cluster (``cluster_phase``): the port's live cluster,
+     ``MiniCluster(3 mons, 11 OSDs, device=cuda)`` on WALStores, driven
+     through librados: an EC pool k=8 m=3 ``jerasure reed_sol_van`` of
+     32 PGs on rule 1 (``choose_indep``, one shard of every object on
+     each OSD), the OSDs' options at their defaults but for the
+     heartbeat grace; 64 objects of 4 MiB written and read back 16 at a
+     time (``rados bench``'s default); osd.3 killed and marked down
+     (heartbeat grace 20 s, upstream's), 16 objects rewritten and all 64
+     read degraded; the revive, with its 16 shards rebuilt through the recon
+     lane, until every PG is clean; every shard and hinfo of every OSD
+     against a re-encode on the CPU; a deep scrub of every PG; one
+     parity byte flipped with its hinfo rewritten to match, found by the
+     deep scrub, attributed to its shard and repaired; one ``[cluster]``
+     line a step (wall, kernel launches) and a summary line (write and
+     read MB/s, degraded read ms, revive to clean, deep scrub ms a PG,
+     the engines' flushes and ops a launch summed over the daemons);
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -156,9 +172,10 @@ time):
    ``pgmap_fold`` on the controlplane harness's 2^20 columns, then the
    ``[controlplane]`` line (health, summary, numpy and device folds with
    the copy-in, K11's graph-timed ms); then
-   ``[profile]`` lines: per lane (write, recon, comp, fingerprint, store)
-   and for the crush mappings, the device profiler's launches, dispatch, compute
-   (the host's wait at the CUDA events) and gap against the lane's wall,
+   ``[profile]`` lines: per lane (write, recon, comp, fingerprint, store,
+   and the cluster's write and recon lanes summed over its daemons)
+   and for the crush mappings, the device profiler's launches, dispatch,
+   compute (the host's wait at the CUDA events) and gap against the lane's wall,
    and a device-busy estimate (every launch at its kernel's graph-timed
    ms); print one ``kernels`` JSON line (``crc32c_batch``'s ``ms`` is
    its cold time, ``ms_warm`` the graph time of one held input),
@@ -237,6 +254,11 @@ BAL_PGS, BAL_MOVES = 1 << 20, 10        # balancer phase: pool, moves
 BOOT_OSD = CRUSH_HOSTS * CRUSH_PER_HOST - 1  # the mon phase's booted OSD
 HEALTH_BAR_MS = 100.0                   # bench.py:1567, reported only
 FOLD_EDGE_ROWS = (1, 31, 32, 33, 1023, 65537)   # K11 edge row counts
+CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_PG_NUM = 3, K + M, 32  # live cluster
+CLUSTER_N, CLUSTER_OBJ = 64, 4 << 20    # RADOS's default object size
+CLUSTER_REWRITE, CLUSTER_KILL = 16, 3   # rewritten while osd.3 is down
+CLUSTER_INFLIGHT = 16                   # rados bench's default -t
+CLUSTER_HB_GRACE = 20.0                 # upstream's osd_heartbeat_grace
 
 
 def fail(msg: str):
@@ -953,6 +975,310 @@ def store_phase(dev, n_obj: int, obj: int, seed: int = 23) -> dict:
                     "compute_ms": tot["compute_s"] * 1e3,
                     "gap_ms": tot["gap_s"] * 1e3}, "totals": tot,
         "perf_device_launches": perf.get("device_launches")}
+
+
+def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
+                  pg_num: int, rewrite: int, seed: int = 31) -> dict:
+    """The port's live cluster on ``dev``, driven through librados:
+    ``MiniCluster(n_mons, n_osds, device=dev)`` on WALStores, an EC pool
+    (k=8 m=3 ``jerasure reed_sol_van``, ``pg_num`` PGs, rule 1:
+    ``choose_indep`` over the flat root, so every OSD holds one shard
+    of every object) with the OSDs' options at their defaults but for
+    the heartbeat grace.  Steps, each with its wall time and
+    kernel launches: ``aio_write_full`` of ``n_obj`` seeded objects of
+    ``obj`` bytes, then ``aio_read`` of all; kill ``CLUSTER_KILL``, wait
+    until the mon marks it down, rewrite ``rewrite`` objects (so the
+    OSD misses their shards) and read all ``n_obj`` degraded; revive it
+    and wait until every PG is clean and its shards are rebuilt
+    (recovery); deep-scrub every PG (no inconsistency); flip one byte
+    of one parity shard with its hinfo rewritten to match and deep-scrub
+    its PG (found, attributed to that shard, repaired).  Every read and
+    every OSD's shard bytes and hinfo are held against a re-encode on
+    the CPU (``create_erasure_code(..., device="cpu")``, the plain
+    versions) and the host CRC-32C."""
+    import torch
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.kernels import build
+    from ceph_tpu_torch.os_store import Transaction
+    from ceph_tpu_torch.osd.osdmap import PGid
+    from ceph_tpu_torch.scrub.crc32c import crc32c_blocks
+    from ceph_tpu_torch.vstart import MiniCluster
+    n = K + M
+    profile = {"plugin": "jerasure", "technique": "reed_sol_van",
+               "k": K, "m": M}
+    ec_cpu = create_erasure_code(profile, device="cpu")
+    payloads = {f"obj{i}": np.random.default_rng(seed + i).integers(
+        0, 256, size=obj, dtype=np.uint8).tobytes() for i in range(n_obj)}
+    names = sorted(payloads, key=lambda s: int(s[3:]))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    steps, mark = {}, [build.counts(), time.perf_counter()]
+    daemons = []        # every OSD daemon of the run, the killed one too
+
+    def step(name):
+        """Close a step: its wall, its kernel launches and its OSDs'
+        device-profiler lanes (the profilers restart for the next)."""
+        sync()
+        now, t = build.counts(), time.perf_counter()
+        lanes = {}
+        for d in daemons:
+            for lane, agg in d.profiler.aggregate()["lanes"].items():
+                tot = lanes.setdefault(lane, dict.fromkeys(agg, 0))
+                for k, v in agg.items():
+                    tot[k] += v
+            d.profiler.reset()
+        steps[name] = {"s": t - mark[1], "lanes": lanes, "launches": {
+            k: now[k] - mark[0].get(k, 0) for k in now
+            if now[k] - mark[0].get(k, 0)}}
+        mark[:] = [now, t]
+        log(f"[cluster] {name}: {steps[name]['s']:.3f} s (host clock), "
+            f"launches {steps[name]['launches']}")
+
+    c = MiniCluster(n_mons=n_mons, n_osds=n_osds, device=dev, osd_config={
+        "osd_heartbeat_grace": CLUSTER_HB_GRACE,
+        "device_profiling_enable": True})
+    try:
+        c.start(timeout=60)
+        daemons += c.osds.values()
+        r = c.rados()
+        rc, outs, _ = r.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "k8m3",
+            "profile": [f"{k}={v}" for k, v in profile.items()]})
+        if rc:
+            fail(f"cluster: erasure-code-profile set: {outs}")
+        r.create_pool("ecpool", pg_num=pg_num, pool_type="erasure",
+                      erasure_code_profile="k8m3", rule=1)
+        io = r.open_ioctx("ecpool")
+        c.wait_for_clean(timeout=120)
+        fs = c._wal_dir and fs_type(c._wal_dir)
+        step("start")
+
+        def windowed(ids, submit, done):
+            """``CLUSTER_INFLIGHT`` ops in flight, as ``rados bench``
+            keeps them; ``done(oid, completion)`` checks each."""
+            inflight = []
+            for o in ids:
+                inflight.append((o, submit(o)))
+                if len(inflight) >= CLUSTER_INFLIGHT:
+                    done(*inflight.pop(0))
+            for o, cp in inflight:
+                done(o, cp)
+
+        def read_all(what):
+            def done(o, cp):
+                if not cp.wait_for_complete(600) or cp.rc:
+                    fail(f"cluster: {what} read of {o}: rc {cp.rc}")
+                if bytes.fromhex(cp.results[0]["data"]) != payloads[o]:
+                    fail(f"cluster: {what} read of {o} differs from what "
+                         f"was written")
+            windowed(names, io.aio_read, done)
+
+        def write(ids):
+            def done(o, cp):
+                if not cp.wait_for_complete(600) or cp.rc:
+                    fail(f"cluster: write of {o}: rc {cp.rc}")
+            windowed(ids, lambda o: io.aio_write_full(o, payloads[o]), done)
+
+        write(names)
+        step("write")
+        read_all("clean")
+        step("read")
+        c.kill_osd(CLUSTER_KILL)
+        c.wait_for_osd_down(CLUSTER_KILL, timeout=4 * CLUSTER_HB_GRACE)
+        step("kill")
+        rng = np.random.default_rng(seed - 1)
+        for o in names[:rewrite]:
+            payloads[o] = rng.integers(0, 256, size=obj,
+                                       dtype=np.uint8).tobytes()
+        write(names[:rewrite])
+        step("degraded_write")
+        read_all("degraded")
+        step("degraded_read")
+        c.revive_osd(CLUSTER_KILL, timeout=60)
+        daemons.append(c.osds[CLUSTER_KILL])
+        wait_until(lambda: all(d.osdmap.is_up(CLUSTER_KILL)
+                               for d in c.osds.values()), 120,
+                   f"every OSD to see osd.{CLUSTER_KILL} up", 0.05)
+        c.wait_for_clean(timeout=120)
+        omap = c.osds[0].osdmap
+        pool_id = io.pool_id
+        placed = {}
+        for o in names:
+            pgid = omap.raw_pg_to_pg(omap.object_locator_to_pg(o, pool_id))
+            acting = omap.pg_to_up_acting_osds(pgid)[2]
+            if sorted(acting) != list(range(n_osds)):
+                fail(f"cluster: {o} maps to {acting}, not one shard on "
+                     f"each of the {n_osds} OSDs")
+            placed[o] = (pgid, acting)
+        want = {}
+        for o in names:
+            enc = ec_cpu.encode(set(range(n)), payloads[o])
+            want[o] = [bytes(np.asarray(enc[s])) for s in range(n)]
+
+        def shard(i, o):
+            pgid, acting = placed[o]
+            s = acting.index(i)
+            st = c.osds[i].store
+            cid = f"{pgid}s{s}"
+            with c.osds[i].lock:
+                if not st.exists(cid, o):
+                    return None, None, s
+                return (bytes(st.read(cid, o)),
+                        json.loads(bytes(st.getattr(cid, o, "_"))), s)
+
+        def rebuilt():
+            return all(shard(CLUSTER_KILL, o)[0] == want[o][placed[o][1]
+                                                         .index(CLUSTER_KILL)]
+                       for o in names[:rewrite])
+
+        def clean():
+            """Every PG active+clean on its primary, nothing missing
+            and no backfill left (stricter than ``wait_for_clean``,
+            which also takes ``active``)."""
+            n_pgs = 0
+            for d in c.osds.values():
+                with d.lock:
+                    for pg in d.pgs.values():
+                        if not pg.is_primary:
+                            continue
+                        n_pgs += 1
+                        if pg.state != "active+clean" or pg.missing \
+                                or any(pg.peer_missing.values()) \
+                                or pg.backfill_targets:
+                            return False
+            return n_pgs == pg_num
+
+        wait_until(rebuilt, 300, "the revived OSD's rebuilt shards", 0.05)
+        wait_until(clean, 300, "every PG clean after the revive", 0.05)
+        step("recovery")
+        # every OSD's shards and metas, copied under each daemon's lock
+        # once; checked after the cluster stops (no daemon threads then
+        # to take the interpreter lock from the host CRC)
+        held = []
+        for i in range(n_osds):
+            d = c.osds[i]
+            with d.lock:
+                for o in names:
+                    pgid, acting = placed[o]
+                    s = acting.index(i)
+                    cid = f"{pgid}s{s}"
+                    held.append((i, o, s, bytes(d.store.read(cid, o)),
+                                 json.loads(bytes(d.store.getattr(
+                                     cid, o, "_")))))
+        step("snapshot")
+        reinterval = []     # scrubs a new interval aborted, restarted
+
+        def deep_scrub(pgid):
+            """One deep scrub of ``pgid`` to its verdict: the error
+            count, once the primary's ``last_deep_scrub`` moved forward.
+            A scrub that a new interval aborted (the PG re-peered under
+            it) starts again, at most twice, and is counted; one that
+            ended without a verdict in its own interval (a member never
+            sent its map) fails the smoke."""
+            for _ in range(3):
+                d = c.osds[c.pg_primary(pgid)]
+                with d.lock:
+                    pg = d.pgs[pgid]
+                    before, interval = pg.last_deep_scrub, pg.interval_epoch
+                try:
+                    errs = c.scrub_pg(pgid, timeout=120)
+                except TimeoutError as e:
+                    fail(f"cluster: deep scrub of {pgid}: {e}")
+                except RuntimeError as e:
+                    with d.lock:
+                        if d.pgs.get(pgid) is pg and \
+                                pg.interval_epoch == interval:
+                            fail(f"cluster: deep scrub of {pgid}: {e}, "
+                                 f"in its own interval")
+                    reinterval.append(str(pgid))
+                    continue
+                with d.lock:
+                    if not d.pgs[pgid].last_deep_scrub > before:
+                        fail(f"cluster: deep scrub of {pgid} on osd."
+                             f"{d.whoami} returned {errs} without a "
+                             f"verdict")
+                return errs
+            fail(f"cluster: deep scrub of {pgid}: three new intervals")
+
+        pgids = [PGid(pool_id, p) for p in range(pg_num)]
+        scrub_ms = []
+        for pgid in pgids:
+            t0 = time.perf_counter()
+            errs = deep_scrub(pgid)
+            scrub_ms.append((time.perf_counter() - t0) * 1e3)
+            if errs:
+                fail(f"cluster: deep scrub of {pgid} found {errs} errors")
+        step("scrub")
+        # one parity shard's byte flipped and its hinfo rewritten to
+        # match: only the deep scrub's parity recheck can see it
+        o = names[0]
+        pgid, acting = placed[o]
+        bad_osd = acting[K]
+        good, meta, s = shard(bad_osd, o)
+        bad = (o, bad_osd, s)
+        broken = bytearray(good)
+        broken[len(broken) // 2] ^= 0x40
+        meta["hinfo"] = crc32c_blocks(bytes(broken))
+        cid = f"{pgid}s{s}"
+        with c.osds[bad_osd].lock:
+            c.osds[bad_osd].store.queue_transaction(
+                Transaction().write(cid, o, 0, bytes(broken)).setattrs(
+                    cid, o, {"_": json.dumps(meta).encode()}))
+        t0 = time.perf_counter()
+        found = deep_scrub(pgid)
+        primary = c.osds[c.pg_primary(pgid)]
+        with primary.lock:
+            report = list(primary.pgs[pgid].inconsistent_objects)
+        culprits = [(sh["osd"], sh["shard"]) for e in report
+                    for sh in e["shards"]]
+        if found < 1 or [e["object"]["name"] for e in report] != [o] \
+                or culprits != [(bad_osd, s)]:
+            fail(f"cluster: the flipped parity byte of {o} on osd."
+                 f"{bad_osd} shard {s}: scrub found {found}, report "
+                 f"{report}")
+        wait_until(lambda: shard(bad_osd, o)[0] == good, 120,
+                   "the flipped shard's repair", 0.05)
+        repair_ms = (time.perf_counter() - t0) * 1e3
+        again = deep_scrub(pgid)
+        if again or shard(bad_osd, o)[1]["hinfo"] != crc32c_blocks(good):
+            with primary.lock:
+                report = list(primary.pgs[pgid].inconsistent_objects)
+            fail(f"cluster: the repaired PG does not scrub clean: {again} "
+                 f"errors, report {report}, hinfo "
+                 f"{shard(bad_osd, o)[1]['hinfo']} for "
+                 f"{crc32c_blocks(good)}")
+        step("scrub_repair")
+        engines = [d.batch_engine.dump() for d in daemons]
+    finally:
+        c.stop()
+    t0 = time.perf_counter()
+    for i, o, s, data, meta in held:
+        if data != want[o][s]:
+            fail(f"cluster: osd.{i} shard {s} of {o} differs from the CPU "
+                 f"re-encode")
+        if meta["size"] != obj:
+            fail(f"cluster: osd.{i} shard {s} of {o}: meta {meta}")
+    rows = np.frombuffer(b"".join(h[3] for h in held), np.uint8).reshape(
+        len(held), -1)
+    if crc32c_rows_host(rows).tolist() != [h[4]["hinfo"] for h in held]:
+        fail("cluster: a stored hinfo differs from the host CRC-32C of its "
+             "shard")
+    log(f"[cluster] checks: {len(held)} shards and hinfos of {n_osds} OSDs "
+        f"equal the CPU re-encode and the host CRC-32C "
+        f"({time.perf_counter() - t0:.3f} s, host clock)")
+    summed = {k: sum(e.get(k, 0) for e in engines)
+              for k in ("launches", "ops_completed", "recon_launches",
+                        "recon_ops_completed", "store_kicks")}
+    for lane, prefix in (("flushes", "flush_"),
+                         ("recon_flushes", "recon_flush_")):
+        summed[lane] = sum(v for e in engines for k, v in e.items()
+                           if k.startswith(prefix) and k != prefix + "ms")
+    return {"steps": steps, "fs": fs, "engine": summed,
+            "daemons": len(engines), "scrub_ms": scrub_ms,
+            "repair_ms": repair_ms, "bad": bad, "reinterval": reinterval}
 
 
 def wait_until(pred, timeout: float, what: str, interval: float = 0.01):
@@ -2250,6 +2576,52 @@ def main():
     cp = controlplane_phase(dev, CP_OSDS, CP_PGS, CP_SAMPLE)
     close_phase("controlplane")
 
+    log(f"[cluster] MiniCluster({CLUSTER_MONS} mons, {CLUSTER_OSDS} OSDs, "
+        f"device {dev}) on WALStores; EC pool k={K} m={M} jerasure "
+        f"reed_sol_van, pg_num {CLUSTER_PG_NUM}, rule 1 (choose_indep over "
+        f"the flat root); scale cut: {CLUSTER_N} objects of "
+        f"{CLUSTER_OBJ >> 20} MiB, not a deployment's millions (the whole "
+        f"cluster is one host process that moves ~3-8 MB/s)")
+    cluster = cluster_phase(dev, CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_N,
+                       CLUSTER_OBJ, CLUSTER_PG_NUM, CLUSTER_REWRITE)
+    close_phase("cluster")
+    st = cluster["steps"]
+    for name, kernels in (("write", ("gf_words", "crc32c_batch")),
+                          ("degraded_read", ("gf_expand", "gf_planes")),
+                          ("recovery", ("gf_expand", "gf_planes")),
+                          ("scrub", ("crc32c_batch",))):
+        for k in kernels:
+            if st[name]["launches"].get(k, 0) <= 0:
+                fail(f"cluster: {k} was not launched in the {name} step")
+    mb = CLUSTER_N * CLUSTER_OBJ / 1e6
+    eng, bad = cluster["engine"], cluster["bad"]
+    scrub_ms = cluster["scrub_ms"]
+    log(f"[cluster] write {mb / st['write']['s']:.1f} MB/s, read "
+        f"{mb / st['read']['s']:.1f} MB/s ({CLUSTER_N} x "
+        f"{CLUSTER_OBJ >> 20} MiB through aio_write_full / aio_read); "
+        f"osd.{CLUSTER_KILL} killed and marked down in "
+        f"{st['kill']['s'] * 1e3:.1f} ms; {CLUSTER_REWRITE} objects "
+        f"rewritten degraded in {st['degraded_write']['s'] * 1e3:.1f} ms; "
+        f"degraded read of all {CLUSTER_N} "
+        f"{st['degraded_read']['s'] * 1e3:.1f} ms; revive to clean, its {CLUSTER_REWRITE} shards rebuilt, "
+        f"{st['recovery']['s'] * 1e3:.1f} ms; every read and all "
+        f"{CLUSTER_N * CLUSTER_OSDS} shards and hinfos equal the CPU "
+        f"re-encode; recon route planes (gf_expand + gf_planes); deep scrub "
+        f"of {len(scrub_ms)} PGs {sum(scrub_ms) / len(scrub_ms):.1f} ms a PG "
+        f"(max {max(scrub_ms):.1f}), no inconsistency, each to a verdict "
+        f"({len(cluster['reinterval'])} restarted after a new interval "
+        f"{cluster['reinterval']}); the flipped parity "
+        f"byte of {bad[0]} on osd.{bad[1]} shard {bad[2]} found, "
+        f"attributed and repaired in {cluster['repair_ms']:.1f} ms; "
+        f"engines summed over {cluster['daemons']} daemons: "
+        f"{eng['flushes']} write flushes, {eng['launches']} launches, "
+        f"{eng['ops_completed'] / max(eng['launches'], 1):.2f} ops a "
+        f"launch; {eng['recon_flushes']} recon flushes, "
+        f"{eng['recon_launches']} launches, "
+        f"{eng['recon_ops_completed'] / max(eng['recon_launches'], 1):.2f} "
+        f"ops a launch; {eng['store_kicks']} store kicks; WALs on "
+        f"{cluster['fs']} (host clock) on {card}")
+
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
     log(f"[launches] {json.dumps(phase_counts)}")
@@ -2521,6 +2893,23 @@ def main():
             f"ms ({tot['gaps']} gaps), wall {wall_ms:.1f} ms; device busy "
             f"<= {busy:.2f} ms ({busy / wall_ms:.2%} of the wall, idle "
             f">= {1 - busy / wall_ms:.2%}) on {card}")
+    for lane, names in (("write", ("write", "degraded_write")),
+                        ("recon", ("degraded_read", "recovery"))):
+        agg = dict.fromkeys(("launches", "dispatch_s", "compute_s"), 0)
+        wall_ms = busy = 0.0
+        for name in names:
+            wall_ms += st[name]["s"] * 1e3
+            for k in agg:
+                agg[k] += st[name]["lanes"].get(lane, {}).get(k, 0)
+            busy += sum(n * kernel_ms[k]
+                        for k, n in st[name]["launches"].items())
+        log(f"[profile] cluster {lane} lane ({' + '.join(names)} steps, "
+            f"{CLUSTER_OSDS} OSDs): {agg['launches']} profiled launches, "
+            f"dispatch {agg['dispatch_s'] * 1e3:.1f} ms, compute "
+            f"{agg['compute_s'] * 1e3:.1f} ms summed over the daemons, "
+            f"wall {wall_ms:.1f} ms; device busy <= {busy:.2f} ms "
+            f"({busy / wall_ms:.2%} of the wall, idle >= "
+            f"{1 - busy / wall_ms:.2%}) on {card}")
     log(f"[profile] write lane, one flush of 2 x 4 MiB (host clock, mean "
         f"of 10): _batch packing {stage_ms[0]:.3f} ms, _stage_in pageable "
         f"host-to-device copy {stage_ms[1]:.3f} ms")

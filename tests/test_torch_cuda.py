@@ -517,3 +517,87 @@ def test_scale_harness_crush_placement_on_the_card(dev):
     cpu = ScaleHarness(**kw, device="cpu")
     assert np.array_equal(card.placements, cpu.placements)
     assert card.evaluate() == cpu.evaluate()
+
+
+def test_mini_cluster_on_the_card(dev):
+    """The port's live cluster on the card: ``MiniCluster(n_mons=1,
+    n_osds=6, device=cuda)`` with an EC k=4 m=2 pool (rule 1, so every
+    OSD holds one shard of every object).  Writes launch K1 and K6; with
+    osd.2 down, rewrites and a degraded read of every object launch K2
+    and its feeder; after the revive and clean, every OSD's shards and
+    hinfos equal a re-encode on the CPU."""
+    import json
+    import time
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.vstart import MiniCluster
+
+    def wait_for(pred, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if pred():
+                return True
+            time.sleep(0.05)
+        return False
+
+    k, m, n_osds, kill = 4, 2, 6, 2
+    ec_cpu = create_erasure_code({"plugin": "jerasure", "k": k, "m": m,
+                                  "technique": "reed_sol_van"}, device="cpu")
+    rng = np.random.default_rng(17)
+    data = {f"o{i}": rng.integers(0, 256, size=(256 << 10) + 37 * i,
+                                  dtype=np.uint8).tobytes()
+            for i in range(8)}
+    c = MiniCluster(n_mons=1, n_osds=n_osds, device=dev)
+    try:
+        c.start()
+        r = c.rados()
+        rc, outs, _ = r.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "k4m2",
+            "profile": [f"k={k}", f"m={m}", "plugin=jerasure",
+                        "technique=reed_sol_van"]})
+        assert rc == 0, outs
+        r.create_pool("ecp", pg_num=4, pool_type="erasure",
+                      erasure_code_profile="k4m2", rule=1)
+        io = r.open_ioctx("ecp")
+        c.wait_for_clean(timeout=60)
+        before = build.counts()
+        for o, d in data.items():
+            io.write_full(o, d)
+        written = build.counts()
+        c.kill_osd(kill)
+        c.wait_for_osd_down(kill, timeout=30)
+        for o in ("o0", "o1"):
+            data[o] = data[o][::-1]
+            io.write_full(o, data[o])
+        for o, d in data.items():
+            assert io.read(o) == d
+        c.revive_osd(kill)
+        want = {o: ec_cpu.encode(set(range(k + m)), d)
+                for o, d in data.items()}
+
+        def shards_ok():
+            if not all(d.osdmap.is_up(kill) for d in c.osds.values()):
+                return False
+            om = c.osds[0].osdmap
+            for o in data:
+                pgid = om.raw_pg_to_pg(om.object_locator_to_pg(o, io.pool_id))
+                acting = om.pg_to_up_acting_osds(pgid)[2]
+                for s, i in enumerate(acting):
+                    st, cid = c.osds[i].store, f"{pgid}s{s}"
+                    with c.osds[i].lock:
+                        if not st.exists(cid, o) or bytes(st.read(
+                                cid, o)) != np.asarray(want[o][s]).tobytes():
+                            return False
+                        meta = json.loads(bytes(st.getattr(cid, o, "_")))
+                    if meta["hinfo"] != C.crc32c(np.asarray(want[o][s])):
+                        return False
+            return True
+
+        assert wait_for(shards_ok)
+        c.wait_for_clean(timeout=60)
+        after = build.counts()
+    finally:
+        c.stop()
+    for name in ("gf_words", "crc32c_batch"):
+        assert written[name] > before[name], name
+    for name in ("gf_expand", "gf_planes"):
+        assert after[name] > written[name], name
