@@ -3059,6 +3059,9 @@ class ECBackend(PGBackendBase):
         so recovery callers can release their pull registration and
         retry later instead of wedging."""
         pg, daemon = self.pg, self.pg.daemon
+        if msg is not None and on_chunks is None and \
+                self._join_resend(msg):
+            return
         oid = msg.oid if msg is not None else None
         k = self.engine.k
         avail = self._available_shards()
@@ -3121,7 +3124,7 @@ class ECBackend(PGBackendBase):
         tid = self._read_tid
         st = {"msg": msg, "need": set(need), "chunks": {},
               "want": want, "on_chunks": on_chunks, "oid": oid,
-              "on_fail": on_fail, "alts": alts}
+              "on_fail": on_fail, "alts": alts, "sent": {}}
         self._reads[tid] = st
         for s in need:
             if not self._issue_shard_read(tid, s, avail[s]):
@@ -3137,6 +3140,7 @@ class ECBackend(PGBackendBase):
             return False
         oid = st["oid"]
         if o != daemon.whoami:
+            st["sent"][s] = o
             daemon.send_to_osd(o, M.MOSDECSubOpRead(
                 tid=tid, pgid=str(pg.pgid), shard=s,
                 epoch=daemon.osdmap.epoch, oid=oid, attrs=True))
@@ -3184,6 +3188,36 @@ class ECBackend(PGBackendBase):
 
     _MIXED_RETRIES = 8
     _MIXED_RETRY_DELAY = 0.25
+
+    def _join_resend(self, msg: M.MOSDOp) -> bool:
+        """A client's resend of a read still gathering its shards here
+        joins that read instead of fanning out k sub-reads again: the
+        reply goes once, to the newest copy's session.  The first
+        resend also asks each shard not yet answered once more, from
+        the OSD it was asked of: a sub-read lost on the wire has no
+        other retry short of a new interval, and a late duplicate reply
+        rewrites the same chunk.  Later resends only join, so a read
+        that is merely slow costs at most twice its sub-reads, where a
+        whole read for every resend (the Objecter's 2, 4, 8, 16 s)
+        grew work faster than a loaded host finished it (the port's
+        departure from ceph_tpu, ROADMAP section 3).
+        → True when ``msg`` joined a read."""
+        for tid, st in self._reads.items():
+            old = st["msg"]
+            if old is not None and st["on_chunks"] is None and \
+                    old.client == msg.client and old.tid == msg.tid:
+                break
+        else:
+            return False
+        if old is not msg:
+            st["msg"] = msg
+            self.pg.finish_tracked(old, "resent")
+            if not st.get("reasked"):
+                st["reasked"] = True
+                for s in sorted(st["need"] - set(st["chunks"])):
+                    if s in st["sent"]:
+                        self._issue_shard_read(tid, s, st["sent"][s])
+        return True
 
     def _retry_read_later(self, msg: M.MOSDOp) -> bool:
         """Requeue a client read whose shard set is transiently

@@ -7,9 +7,10 @@ plane without daemons.  ``MiniCluster(device=...)`` hands its device to
 every OSD (``None`` → the card, raising without one; ``"cpu"`` runs the
 kernels' plain versions).
 
-Threaded mode only: ``procs=True`` (one OS process a daemon) and the
-mgr, MDS/CephFS and RGW methods wait for the service-heads slice
-(ROADMAP).
+Threaded mode only.  ``start_rgw`` starts the single-zone object
+gateway (``rgw.RGWService``) on the cluster; ``procs=True`` (one OS
+process a daemon), the mgr, the MDS with CephFS, RBD and the multisite
+sync paths wait for later service-heads slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -182,6 +183,7 @@ class MiniCluster:
         self.osds: dict[int, OSDaemon] = {}
         self.n_osds = n_osds
         self._clients: list[Rados] = []
+        self._rgws: list = []
         # (injector, src, dst) triples the site primitives installed,
         # so heal_sites removes exactly what it added
         self._site_rules: list[tuple] = []
@@ -402,6 +404,11 @@ class MiniCluster:
             dedup_problems = self.dedup_leak_check()
         except Exception:
             dedup_problems = []
+        for gw in self._rgws:
+            try:
+                gw.shutdown()
+            except Exception:
+                pass
         for c in self._clients:
             try:
                 c.shutdown()
@@ -439,6 +446,17 @@ class MiniCluster:
                   config=config).connect()
         self._clients.append(r)
         return r
+
+    def start_rgw(self, rados=None, **kw):
+        """Start an RGW gateway against this cluster (tracked: stop()
+        shuts it down).  kwargs pass through to `RGWService`
+        (pool_size, max_concurrent, stripe_size, data_pool_opts,
+        require_auth, ...)."""
+        from .rgw import RGWService
+        gw = RGWService(rados if rados is not None else self.rados(),
+                        **kw).start()
+        self._rgws.append(gw)
+        return gw
 
     # -- fault fabric ------------------------------------------------------
     def partition_osds(self, a: int, b: int, *,

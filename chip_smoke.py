@@ -142,9 +142,9 @@ time):
      through librados: an EC pool k=8 m=3 ``jerasure reed_sol_van`` of
      32 PGs on rule 1 (``choose_indep``, one shard of every object on
      each OSD), the OSDs' options at their defaults but for the
-     heartbeat grace; 64 objects of 4 MiB written and read back 16 at a
+     heartbeat grace; 32 objects of 4 MiB written and read back 16 at a
      time (``rados bench``'s default); osd.3 killed and marked down
-     (heartbeat grace 20 s, upstream's), 16 objects rewritten and all 64
+     (heartbeat grace 20 s, upstream's), 16 objects rewritten and all 32
      read degraded; the revive, with its 16 shards rebuilt through the recon
      lane, until every PG is clean; every shard and hinfo of every OSD
      against a re-encode on the CPU; a deep scrub of every PG; one
@@ -153,6 +153,31 @@ time):
      line a step (wall, kernel launches) and a summary line (write and
      read MB/s, degraded read ms, revive to clean, deep scrub ms a PG,
      the engines' flushes and ops a launch summed over the daemons);
+   - rgw (``rgw_phase``), on a ``MiniCluster`` of its own started after
+     the cluster phase's has stopped (3 mons, 11 OSDs, ``device=cuda``,
+     WALStores, the option defaults but the heartbeat grace):
+     ``start_rgw(require_auth=True)`` at ``RGWService``'s defaults
+     (pool_size 16, max_concurrent 64, stripe_size 4 MiB) on an EC data
+     pool k=8 m=3 ``jerasure reed_sol_van`` of 32 PGs on rule 1; the
+     pool read back from the mon (erasure, the k8m3 profile, rule 1);
+     ``radosgw-admin user create`` in process, its keys from its JSON;
+     every request SigV4-signed by the port's ``S3Client``: a bucket, 16
+     seeded PUTs of 4 MiB 2 at a time (each ETag against md5), every GET
+     byte for byte 2 at a time and the listing; one multipart upload of
+     2 parts of 8 MiB, one part at a time (each part's 2 stripes written
+     together), its ETag against the md5 of the part md5s, its GET
+     whole; osd.3 killed and marked down (the 20 s grace; the gateway's
+     client on that map too, every PG active again), all 17 objects GET
+     degraded 2 at a time, with each RADOS op the gateway's client
+     resent in that step;
+     the revive, until every PG is clean; every OSD's shards and hinfos
+     of every ``.rgw.data`` object against a re-encode on the CPU and
+     the host CRC-32C; any request the client sent twice (after its 10 s
+     socket timeout or a dropped connection) fails the phase; one
+     ``[rgw]`` line a step (wall, requests, each request's latency and
+     their median and max, launches) and a summary line (PUT, GET and
+     multipart MB/s, degraded GET ms an object, revive to clean, the
+     write lane's ops a launch summed over the daemons);
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -173,7 +198,8 @@ time):
    ``[controlplane]`` line (health, summary, numpy and device folds with
    the copy-in, K11's graph-timed ms); then
    ``[profile]`` lines: per lane (write, recon, comp, fingerprint, store,
-   and the cluster's write and recon lanes summed over its daemons)
+   and the cluster's and the gateway's write and recon lanes summed
+   over their daemons)
    and for the crush mappings, the device profiler's launches, dispatch,
    compute (the host's wait at the CUDA events) and gap against the lane's wall,
    and a device-busy estimate (every launch at its kernel's graph-timed
@@ -255,10 +281,20 @@ BOOT_OSD = CRUSH_HOSTS * CRUSH_PER_HOST - 1  # the mon phase's booted OSD
 HEALTH_BAR_MS = 100.0                   # bench.py:1567, reported only
 FOLD_EDGE_ROWS = (1, 31, 32, 33, 1023, 65537)   # K11 edge row counts
 CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_PG_NUM = 3, K + M, 32  # live cluster
-CLUSTER_N, CLUSTER_OBJ = 64, 4 << 20    # RADOS's default object size
+# RADOS's default object size; 32 objects, not 64, keep the smoke well
+# inside its run's 1200 s: at 64 the cluster phase took 380 s on an H100
+# 80GB HBM3 host, and the smoke would have ended near 840 s there
+CLUSTER_N, CLUSTER_OBJ = 32, 4 << 20
 CLUSTER_REWRITE, CLUSTER_KILL = 16, 3   # rewritten while osd.3 is down
 CLUSTER_INFLIGHT = 16                   # rados bench's default -t
+STUCK_S = 300.0                         # a read's wait before its dump
 CLUSTER_HB_GRACE = 20.0                 # upstream's osd_heartbeat_grace
+RGW_N, RGW_OBJ = 16, 4 << 20            # S3 PUTs of RADOS's default size
+RGW_PART, RGW_PARTS = 8 << 20, 2        # multipart: 2 stripes of 4 MiB a part
+# requests in flight: at 4, PUTs took up to 10.04 s and GETs 6.8 s of
+# the client's 10 s socket timeout on an H100 80GB HBM3 host
+RGW_INFLIGHT = 2
+RGW_KILL = 3
 
 
 def fail(msg: str):
@@ -977,6 +1013,152 @@ def store_phase(dev, n_obj: int, obj: int, seed: int = 23) -> dict:
         "perf_device_launches": perf.get("device_launches")}
 
 
+class StepClock:
+    """The steps of a live-cluster phase: each one's wall, its kernel
+    launches and its OSDs' device-profiler lanes summed over
+    ``daemons`` (every OSD daemon of the run, a killed one too; each
+    profiler restarts for the next step)."""
+
+    def __init__(self, tag: str, dev):
+        from ceph_tpu_torch.kernels import build
+        self.tag, self.dev, self.build = tag, dev, build
+        self.steps, self.daemons = {}, []
+        self.mark = [build.counts(), time.perf_counter()]
+
+    def close(self, name: str, extra: str = "") -> dict:
+        if self.dev.type == "cuda":
+            import torch
+            torch.cuda.synchronize(self.dev)
+        now, t = self.build.counts(), time.perf_counter()
+        lanes = {}
+        for d in self.daemons:
+            for lane, agg in d.profiler.aggregate()["lanes"].items():
+                tot = lanes.setdefault(lane, dict.fromkeys(agg, 0))
+                for k, v in agg.items():
+                    tot[k] += v
+            d.profiler.reset()
+        then = self.mark[0]
+        step = self.steps[name] = {
+            "s": t - self.mark[1], "lanes": lanes, "launches": {
+                k: now[k] - then.get(k, 0) for k in now
+                if now[k] - then.get(k, 0)}}
+        self.mark = [now, t]
+        log(f"[{self.tag}] {name}: {step['s']:.3f} s (host clock)"
+            f"{extra}, launches {step['launches']}")
+        return step
+
+
+def pgs_clean(c, n_pgs: int) -> bool:
+    """Every one of the cluster's ``n_pgs`` PGs active+clean on its
+    primary, nothing missing and no backfill left (stricter than
+    ``wait_for_clean``, which also takes ``active``)."""
+    seen = 0
+    for d in c.osds.values():
+        with d.lock:
+            for pg in d.pgs.values():
+                if not pg.is_primary:
+                    continue
+                seen += 1
+                if pg.state != "active+clean" or pg.missing \
+                        or any(pg.peer_missing.values()) \
+                        or pg.backfill_targets:
+                    return False
+    return seen == n_pgs
+
+
+def cpu_shards(ec_cpu, data: bytes) -> list[bytes]:
+    """The k+m shards of one object, encoded on the CPU (the plain
+    versions)."""
+    enc = ec_cpu.encode(set(range(K + M)), data)
+    return [bytes(np.asarray(enc[s])) for s in range(K + M)]
+
+
+def place_shards(c, pool_id: int, names, what: str) -> dict:
+    """{object: (pgid, acting)} from an OSD's map; fails unless every
+    object has one shard on each OSD (``choose_indep`` over the flat
+    root with k + m OSDs)."""
+    omap = c.osds[0].osdmap
+    placed = {}
+    for o in names:
+        pgid = omap.raw_pg_to_pg(omap.object_locator_to_pg(o, pool_id))
+        acting = omap.pg_to_up_acting_osds(pgid)[2]
+        if sorted(acting) != list(range(K + M)):
+            fail(f"{what}: {o!r} maps to {acting}, not one shard on each "
+                 f"of the {K + M} OSDs")
+        placed[o] = (pgid, acting)
+    return placed
+
+
+def hold_shards(c, placed: dict) -> list:
+    """Every OSD's shard and ``"_"`` meta of each placed object, copied
+    under each daemon's lock once: checked after the cluster stops (no
+    daemon threads then to take the interpreter lock from the host
+    CRC)."""
+    held = []
+    for i in range(K + M):
+        d = c.osds[i]
+        with d.lock:
+            for o, (pgid, acting) in placed.items():
+                s = acting.index(i)
+                cid = f"{pgid}s{s}"
+                held.append((i, o, s, bytes(d.store.read(cid, o)),
+                             json.loads(bytes(d.store.getattr(cid, o, "_")))))
+    return held
+
+
+def check_shards(held: list, want: dict, sizes: dict, what: str):
+    """Every held shard against the CPU re-encode ``want``, its meta's
+    size against ``sizes`` and its hinfo against the host CRC-32C."""
+    t0 = time.perf_counter()
+    for i, o, s, data, meta in held:
+        if data != want[o][s]:
+            fail(f"{what}: osd.{i} shard {s} of {o!r} differs from the CPU "
+                 f"re-encode")
+        if meta["size"] != sizes[o]:
+            fail(f"{what}: osd.{i} shard {s} of {o!r}: meta {meta}")
+    for n in sorted({len(h[3]) for h in held}):
+        same = [h for h in held if len(h[3]) == n]
+        rows = np.frombuffer(b"".join(h[3] for h in same),
+                             np.uint8).reshape(len(same), n)
+        if crc32c_rows_host(rows).tolist() != [h[4]["hinfo"] for h in same]:
+            fail(f"{what}: a stored hinfo differs from the host CRC-32C of "
+                 f"its shard")
+    log(f"[{what}] checks: {len(held)} shards and hinfos of {K + M} OSDs "
+        f"equal the CPU re-encode and the host CRC-32C "
+        f"({time.perf_counter() - t0:.3f} s, host clock)")
+
+
+def dump_stuck(c, objecter, oid: str):
+    """What a client op on ``oid`` that has not completed waits on: its
+    sends, the primary's PG and that PG's EC reads in flight, and every
+    thread's stack (on stderr)."""
+    import faulthandler
+    with objecter.lock:
+        ops = [(op.pgid, op.target_osd, op.attempts,
+                round(time.monotonic() - op.submitted, 1))
+               for op in objecter.inflight.values() if op.oid == oid]
+    log(f"[stuck] {oid}: the client's ops (pgid, primary, sends, s since "
+        f"the last) {ops}")
+    for pgid, osd, _n, _s in ops:
+        d = c.osds.get(osd)
+        if d is None or not d.lock.acquire(timeout=5):
+            log(f"[stuck] osd.{osd}: {'gone' if d is None else 'locked'}")
+            continue
+        try:
+            pg = d.pgs.get(pgid)
+            reads = [(tid, sorted(st["need"]), sorted(st["chunks"]),
+                      st.get("sent"))
+                     for tid, st in getattr(getattr(pg, "backend", None),
+                                            "_reads", {}).items()
+                     if st.get("oid") == oid]
+            log(f"[stuck] osd.{osd} pg {pgid}: state "
+                f"{getattr(pg, 'state', None)}, epoch {d.osdmap.epoch}, "
+                f"its reads of {oid} (tid, need, chunks, sent) {reads}")
+        finally:
+            d.lock.release()
+    faulthandler.dump_traceback(all_threads=True)
+
+
 def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
                   pg_num: int, rewrite: int, seed: int = 31) -> dict:
     """The port's live cluster on ``dev``, driven through librados:
@@ -996,14 +1178,11 @@ def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
     every OSD's shard bytes and hinfo are held against a re-encode on
     the CPU (``create_erasure_code(..., device="cpu")``, the plain
     versions) and the host CRC-32C."""
-    import torch
     from ceph_tpu_torch.ec import create_erasure_code
-    from ceph_tpu_torch.kernels import build
     from ceph_tpu_torch.os_store import Transaction
     from ceph_tpu_torch.osd.osdmap import PGid
     from ceph_tpu_torch.scrub.crc32c import crc32c_blocks
     from ceph_tpu_torch.vstart import MiniCluster
-    n = K + M
     profile = {"plugin": "jerasure", "technique": "reed_sol_van",
                "k": K, "m": M}
     ec_cpu = create_erasure_code(profile, device="cpu")
@@ -1011,31 +1190,8 @@ def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
         0, 256, size=obj, dtype=np.uint8).tobytes() for i in range(n_obj)}
     names = sorted(payloads, key=lambda s: int(s[3:]))
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    steps, mark = {}, [build.counts(), time.perf_counter()]
-    daemons = []        # every OSD daemon of the run, the killed one too
-
-    def step(name):
-        """Close a step: its wall, its kernel launches and its OSDs'
-        device-profiler lanes (the profilers restart for the next)."""
-        sync()
-        now, t = build.counts(), time.perf_counter()
-        lanes = {}
-        for d in daemons:
-            for lane, agg in d.profiler.aggregate()["lanes"].items():
-                tot = lanes.setdefault(lane, dict.fromkeys(agg, 0))
-                for k, v in agg.items():
-                    tot[k] += v
-            d.profiler.reset()
-        steps[name] = {"s": t - mark[1], "lanes": lanes, "launches": {
-            k: now[k] - mark[0].get(k, 0) for k in now
-            if now[k] - mark[0].get(k, 0)}}
-        mark[:] = [now, t]
-        log(f"[cluster] {name}: {steps[name]['s']:.3f} s (host clock), "
-            f"launches {steps[name]['launches']}")
+    clock = StepClock("cluster", dev)
+    steps, daemons, step = clock.steps, clock.daemons, clock.close
 
     c = MiniCluster(n_mons=n_mons, n_osds=n_osds, device=dev, osd_config={
         "osd_heartbeat_grace": CLUSTER_HB_GRACE,
@@ -1069,7 +1225,9 @@ def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
 
         def read_all(what):
             def done(o, cp):
-                if not cp.wait_for_complete(600) or cp.rc:
+                if not cp.wait_for_complete(STUCK_S):
+                    dump_stuck(c, r.objecter, o)
+                if not cp.wait_for_complete(0) or cp.rc:
                     fail(f"cluster: {what} read of {o}: rc {cp.rc}")
                 if bytes.fromhex(cp.results[0]["data"]) != payloads[o]:
                     fail(f"cluster: {what} read of {o} differs from what "
@@ -1103,20 +1261,9 @@ def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
                                for d in c.osds.values()), 120,
                    f"every OSD to see osd.{CLUSTER_KILL} up", 0.05)
         c.wait_for_clean(timeout=120)
-        omap = c.osds[0].osdmap
         pool_id = io.pool_id
-        placed = {}
-        for o in names:
-            pgid = omap.raw_pg_to_pg(omap.object_locator_to_pg(o, pool_id))
-            acting = omap.pg_to_up_acting_osds(pgid)[2]
-            if sorted(acting) != list(range(n_osds)):
-                fail(f"cluster: {o} maps to {acting}, not one shard on "
-                     f"each of the {n_osds} OSDs")
-            placed[o] = (pgid, acting)
-        want = {}
-        for o in names:
-            enc = ec_cpu.encode(set(range(n)), payloads[o])
-            want[o] = [bytes(np.asarray(enc[s])) for s in range(n)]
+        placed = place_shards(c, pool_id, names, "cluster")
+        want = {o: cpu_shards(ec_cpu, payloads[o]) for o in names}
 
         def shard(i, o):
             pgid, acting = placed[o]
@@ -1134,40 +1281,11 @@ def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
                                                          .index(CLUSTER_KILL)]
                        for o in names[:rewrite])
 
-        def clean():
-            """Every PG active+clean on its primary, nothing missing
-            and no backfill left (stricter than ``wait_for_clean``,
-            which also takes ``active``)."""
-            n_pgs = 0
-            for d in c.osds.values():
-                with d.lock:
-                    for pg in d.pgs.values():
-                        if not pg.is_primary:
-                            continue
-                        n_pgs += 1
-                        if pg.state != "active+clean" or pg.missing \
-                                or any(pg.peer_missing.values()) \
-                                or pg.backfill_targets:
-                            return False
-            return n_pgs == pg_num
-
         wait_until(rebuilt, 300, "the revived OSD's rebuilt shards", 0.05)
-        wait_until(clean, 300, "every PG clean after the revive", 0.05)
+        wait_until(lambda: pgs_clean(c, pg_num), 300,
+                   "every PG clean after the revive", 0.05)
         step("recovery")
-        # every OSD's shards and metas, copied under each daemon's lock
-        # once; checked after the cluster stops (no daemon threads then
-        # to take the interpreter lock from the host CRC)
-        held = []
-        for i in range(n_osds):
-            d = c.osds[i]
-            with d.lock:
-                for o in names:
-                    pgid, acting = placed[o]
-                    s = acting.index(i)
-                    cid = f"{pgid}s{s}"
-                    held.append((i, o, s, bytes(d.store.read(cid, o)),
-                                 json.loads(bytes(d.store.getattr(
-                                     cid, o, "_")))))
+        held = hold_shards(c, placed)
         step("snapshot")
         reinterval = []     # scrubs a new interval aborted, restarted
 
@@ -1254,21 +1372,7 @@ def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
         engines = [d.batch_engine.dump() for d in daemons]
     finally:
         c.stop()
-    t0 = time.perf_counter()
-    for i, o, s, data, meta in held:
-        if data != want[o][s]:
-            fail(f"cluster: osd.{i} shard {s} of {o} differs from the CPU "
-                 f"re-encode")
-        if meta["size"] != obj:
-            fail(f"cluster: osd.{i} shard {s} of {o}: meta {meta}")
-    rows = np.frombuffer(b"".join(h[3] for h in held), np.uint8).reshape(
-        len(held), -1)
-    if crc32c_rows_host(rows).tolist() != [h[4]["hinfo"] for h in held]:
-        fail("cluster: a stored hinfo differs from the host CRC-32C of its "
-             "shard")
-    log(f"[cluster] checks: {len(held)} shards and hinfos of {n_osds} OSDs "
-        f"equal the CPU re-encode and the host CRC-32C "
-        f"({time.perf_counter() - t0:.3f} s, host clock)")
+    check_shards(held, want, {o: obj for o in names}, "cluster")
     summed = {k: sum(e.get(k, 0) for e in engines)
               for k in ("launches", "ops_completed", "recon_launches",
                         "recon_ops_completed", "store_kicks")}
@@ -1279,6 +1383,296 @@ def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
     return {"steps": steps, "fs": fs, "engine": summed,
             "daemons": len(engines), "scrub_ms": scrub_ms,
             "repair_ms": repair_ms, "bad": bad, "reinterval": reinterval}
+
+
+def latencies(ms: list) -> str:
+    """A step's requests and their latency, median and max, then each
+    request's."""
+    if not ms:
+        return ""
+    return (f", {len(ms)} requests, latency median "
+            f"{float(np.median(ms)):.1f} ms, max {max(ms):.1f} ms "
+            f"(each: {', '.join(f'{x:.1f}' for x in ms)})")
+
+
+def rgw_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
+              part: int, parts: int, pg_num: int, seed: int = 43) -> dict:
+    """The port's object gateway on ``dev``: ``MiniCluster(n_mons,
+    n_osds, device=dev)`` on WALStores with the OSDs' options at their
+    defaults but the heartbeat grace, and ``start_rgw(require_auth=True,
+    data_pool_opts=...)`` on an EC data pool (k=8 m=3 ``jerasure
+    reed_sol_van``, ``pg_num`` PGs, rule 1), everything else at
+    ``RGWService``'s defaults (``stripe_size`` 4 MiB).  Steps, each
+    with its wall time, requests, latencies and kernel launches: the
+    data pool read back from the mon (erasure, the k8m3 profile, rule
+    1); ``radosgw-admin user create`` in process, its keys taken from
+    its JSON; a bucket and ``n_obj`` seeded PUTs of ``obj`` bytes,
+    ``RGW_INFLIGHT`` in flight, each ETag against ``hashlib.md5``;
+    every GET byte for byte (as many in flight) and the listing; one multipart upload of ``parts`` parts of ``part`` bytes,
+    one part at a time (each part's stripes written together by
+    ``put_part``), its ETag against the md5 of the part md5s, its GET
+    whole; osd
+    ``RGW_KILL`` killed and waited for until marked down in the OSDs'
+    and the gateway's maps and every PG is active again; every object
+    GET degraded, ``RGW_INFLIGHT`` in flight, with the RADOS
+    ops that the gateway's client resent meanwhile; the revive, until
+    every PG is clean; every OSD's shards and hinfos of every
+    ``.rgw.data`` object against a re-encode on the CPU and the host
+    CRC-32C.  Every request is SigV4-signed by the port's
+    ``S3Client``, and the phase fails on a request that ``S3Client``
+    sent twice (it retries once on a fresh connection when a reused one
+    fails, its 10 s socket timeout among the failures)."""
+    import hashlib
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.osd.osdmap import TYPE_ERASURE
+    from ceph_tpu_torch.rgw import S3Client
+    from ceph_tpu_torch.tools import radosgw_admin
+    from ceph_tpu_torch.vstart import MiniCluster
+    profile = {"plugin": "jerasure", "technique": "reed_sol_van",
+               "k": K, "m": M}
+    ec_cpu = create_erasure_code(profile, device="cpu")
+    rng = np.random.default_rng(seed)
+    bucket = "smoke"
+    payloads = {f"obj{i}": rng.integers(0, 256, size=obj,
+                                        dtype=np.uint8).tobytes()
+                for i in range(n_obj)}
+    names = sorted(payloads, key=lambda s: int(s[3:]))
+    part_data = [rng.integers(0, 256, size=part, dtype=np.uint8).tobytes()
+                 for _ in range(parts)]
+    whole = b"".join(part_data)
+    clock = StepClock("rgw", dev)
+
+    def step(name, ms=()):
+        clock.close(name, latencies(list(ms)))["ms"] = list(ms)
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def md5(b):
+        return hashlib.md5(b).hexdigest()
+
+    class Client(S3Client):
+        """The port's client, counting each request's attempts."""
+
+        def _conn(self):
+            self._local.attempts = getattr(self._local, "attempts", 0) + 1
+            return super()._conn()
+
+        def _req(self, method, path, body=b""):
+            self._local.attempts = 0
+            out = super()._req(method, path, body)
+            if self._local.attempts != 1:
+                fail(f"rgw: {method} {path} was sent "
+                     f"{self._local.attempts} times (a timeout or a "
+                     f"dropped connection)")
+            return out
+
+    c = MiniCluster(n_mons=n_mons, n_osds=n_osds, device=dev, osd_config={
+        "osd_heartbeat_grace": CLUSTER_HB_GRACE,
+        "device_profiling_enable": True})
+    try:
+        c.start(timeout=60)
+        clock.daemons += c.osds.values()
+        r = c.rados()
+        rc, outs, _ = r.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "k8m3",
+            "profile": [f"{k}={v}" for k, v in profile.items()]})
+        if rc:
+            fail(f"rgw: erasure-code-profile set: {outs}")
+        gw = c.start_rgw(require_auth=True, data_pool_opts={
+            "pool_type": "erasure", "erasure_code_profile": "k8m3",
+            "pg_num": pg_num, "rule": 1})
+        c.wait_for_clean(timeout=120)
+        step("start")
+        # 1. the data pool as the mon has it: a pool created replicated
+        # (or on rule 0) would pass every byte check below
+        (rc, outs, dump), ms0 = timed(r.mon_command, {"prefix": "osd dump"})
+        if rc:
+            fail(f"rgw: osd dump: {outs}")
+        pools = {p["name"]: p for p in dump["pools"]}
+        data = pools.get(".rgw.data")
+        if data is None:
+            fail(f"rgw: no .rgw.data pool in the mon's map: {sorted(pools)}")
+        (rc, outs, prof), ms1 = timed(r.mon_command, {
+            "prefix": "osd erasure-code-profile get",
+            "name": data["erasure_code_profile"]})
+        got = (data["type"], data["erasure_code_profile"],
+               data["crush_rule"], data["size"], data["pg_num"],
+               rc == 0 and prof.get("k"), rc == 0 and prof.get("m"),
+               rc == 0 and prof.get("technique"))
+        if got != (TYPE_ERASURE, "k8m3", 1, K + M, pg_num, str(K), str(M),
+                   "reed_sol_van"):
+            fail(f"rgw: .rgw.data is not erasure k={K} m={M} on rule 1: "
+                 f"(type, profile, rule, size, pg_num, k, m, technique) "
+                 f"= {got}, pool {data}")
+        log(f"[rgw] .rgw.data read back from the mon: type erasure "
+            f"({data['type']}), profile k8m3 {prof}, crush_rule "
+            f"{data['crush_rule']}, size {data['size']}, min_size "
+            f"{data['min_size']}, pg_num {data['pg_num']}; .rgw.meta "
+            f"type {pools['.rgw.meta']['type']}, size "
+            f"{pools['.rgw.meta']['size']}")
+        step("pool", [ms0, ms1])
+        # 2. the user, through the port's radosgw-admin
+        mon = ",".join(f"{a.host}:{a.port}" for a in c.monmap.mons.values())
+        (rc, out, err), ms = timed(cli, radosgw_admin, [
+            "-m", mon, "user", "create", "--uid", "smoke",
+            "--display-name", "chip smoke"])
+        if rc:
+            fail(f"rgw: radosgw-admin user create: rc {rc}: {err}")
+        user = json.loads(out)
+        cl = Client("127.0.0.1", gw.port, user["access_key"],
+                    user["secret_key"])
+        step("user", [ms])
+        # 3. a bucket, PUTs, GETs and the listing
+        st, ms = timed(cl.make_bucket, bucket)
+        if st != 200:
+            fail(f"rgw: PUT /{bucket}: {st}")
+        put_ms = [ms]
+
+        def put(o):
+            (st, etag), ms = timed(cl.put, bucket, o, payloads[o])
+            if st != 200 or etag != md5(payloads[o]):
+                fail(f"rgw: PUT {o}: {st}, ETag {etag} for "
+                     f"{md5(payloads[o])}")
+            return ms
+
+        def get(item):
+            o, want = item
+            (st, body), ms = timed(cl.get, bucket, o)
+            if st != 200 or body != want:
+                fail(f"rgw: GET {o}: {st}, {len(body)} bytes differ from "
+                     f"the {len(want)} written")
+            return ms
+
+        with ThreadPoolExecutor(RGW_INFLIGHT) as ex:
+            put_ms += list(ex.map(put, names))
+        step("put", put_ms)
+        with ThreadPoolExecutor(RGW_INFLIGHT) as ex:
+            get_ms = list(ex.map(get, payloads.items()))
+        (st, _h, body), ms = timed(cl.list, bucket)
+        listed = re.findall(rb"<Key>([^<]*)</Key><Size>(\d+)</Size>"
+                            rb"<ETag>&quot;([0-9a-f]+)&quot;</ETag>", body)
+        want_list = sorted((o.encode(), str(obj).encode(),
+                            md5(payloads[o]).encode()) for o in names)
+        if st != 200 or listed != want_list:
+            fail(f"rgw: GET /{bucket}: {st}, listing {listed[:3]}... of "
+                 f"{len(listed)} for {len(want_list)}")
+        step("get", get_ms + [ms])
+        # 4. one multipart upload, one part at a time
+        (st, up), ms = timed(cl.initiate_multipart, bucket, "mp")
+        if st != 200:
+            fail(f"rgw: initiate multipart: {st}")
+        mp_ms = [ms]
+        for n, data_n in enumerate(part_data, 1):
+            (st, etag), ms = timed(cl.put_part, bucket, "mp", up, n, data_n)
+            if st != 200 or etag != md5(data_n):
+                fail(f"rgw: part {n}: {st}, ETag {etag}")
+            mp_ms.append(ms)
+        (st, etag), ms = timed(cl.complete_multipart, bucket, "mp", up)
+        want_etag = hashlib.md5(b"".join(
+            hashlib.md5(p).digest() for p in part_data)).hexdigest()
+        if st != 200 or etag != f"{want_etag}-{parts}":
+            fail(f"rgw: complete multipart: {st}, ETag {etag} for "
+                 f"{want_etag}-{parts}")
+        mp_ms.append(ms)
+        manifest = gw.store.head_object(bucket, "mp")["parts"]
+        step("multipart_put", mp_ms)
+        step("multipart_get", [get(("mp", whole))])
+        # 5. one OSD down: every object read degraded
+        c.kill_osd(RGW_KILL)
+        c.wait_for_osd_down(RGW_KILL, timeout=4 * CLUSTER_HB_GRACE)
+        # the gateway's client too (a GET sent on the map before waits
+        # out the Objecter's resend), and every PG re-peered (a GET to a
+        # PG still peering is parked until it activates)
+        wait_until(lambda: not gw.store.rados.objecter.osdmap.is_up(
+            RGW_KILL), 60, f"the gateway's map to mark osd.{RGW_KILL} down",
+            0.05)
+        c.wait_for_clean(timeout=120)
+        step("kill")
+        objects = {**payloads, "mp": whole}
+        # each send of the gateway's client, to tell a degraded GET's
+        # wait for the Objecter's resend (2 s) from its read
+        objecter, sends = gw.store.rados.objecter, []
+        send_op, t0 = objecter._send_op, time.perf_counter()
+
+        def traced(op):
+            send_op(op)
+            sends.append((time.perf_counter() - t0, op.oid, op.attempts))
+
+        def deg_get(item):
+            t = time.perf_counter() - t0
+            spans[item[0]] = (t, None)
+            spans[item[0]] = (t, get(item))
+            return spans[item[0]][1]
+
+        spans = {}
+        objecter._send_op = traced
+        try:
+            with ThreadPoolExecutor(RGW_INFLIGHT) as ex:
+                deg_ms = list(ex.map(deg_get, objects.items()))
+        finally:
+            # printed when a GET fails too
+            del objecter._send_op
+            resent = [f"{oid} (resend {n - 1} at {t:.2f} s)".replace(
+                "\x00", "/") for t, oid, n in sends if n > 1]
+            each = ", ".join(
+                f"{o} {t:.2f}-" + ("unanswered" if ms is None else
+                                   f"{t + ms / 1e3:.2f}")
+                for o, (t, ms) in spans.items())
+            log(f"[rgw] degraded GETs, seconds since the first: {each}; "
+                f"{len(sends)} RADOS sends of the gateway's client, "
+                f"{len(resent)} of them resends"
+                f"{': ' + ', '.join(resent) if resent else ''}")
+        step("degraded_get", deg_ms)
+        # 6. the revive, until every PG of both pools is clean
+        c.revive_osd(RGW_KILL, timeout=60)
+        clock.daemons.append(c.osds[RGW_KILL])
+        wait_until(lambda: all(d.osdmap.is_up(RGW_KILL)
+                               for d in c.osds.values()), 120,
+                   f"every OSD to see osd.{RGW_KILL} up", 0.05)
+        n_pgs = pg_num + pools[".rgw.meta"]["pg_num"]
+        wait_until(lambda: pgs_clean(c, n_pgs), 300,
+                   "every PG clean after the revive", 0.05)
+        step("recovery")
+        # 7. every data object's shards and hinfos, held for the check;
+        # the listing waits for the gateway's client and every OSD to
+        # share one map (a PG answered with EAGAIN while an epoch
+        # spreads is left out of a listing)
+        wait_until(lambda: all(d.osdmap.epoch == objecter.osdmap.epoch
+                               for d in c.osds.values()), 60,
+                   "the gateway's client and the OSDs on one map", 0.05)
+        ss = gw.store.stripe_size
+        stored = {f"{bucket}\x00{o}": d for o, d in payloads.items()}
+        # a part above stripe_size is cut into stripes of that size
+        chunks = [p[j:j + ss] if len(p) > ss else p
+                  for p in part_data for j in range(0, len(p), ss)]
+        if len(chunks) != len(manifest):
+            fail(f"rgw: the manifest has {len(manifest)} data objects for "
+                 f"{len(chunks)} stripes")
+        stored.update(zip(manifest, chunks))
+        listed = sorted(gw.store.data.list_objects())
+        if listed != sorted(stored):
+            fail(f"rgw: .rgw.data holds {len(listed)} objects "
+                 f"{listed[:4]}..., not the {len(stored)} written")
+        held = hold_shards(c, place_shards(c, gw.store.data.pool_id,
+                                           listed, "rgw"))
+        step("snapshot")
+        engines = [d.batch_engine.dump() for d in clock.daemons]
+    finally:
+        c.stop()
+    check_shards(held, {o: cpu_shards(ec_cpu, d) for o, d in stored.items()},
+                 {o: len(d) for o, d in stored.items()}, "rgw")
+    summed = {k: sum(e.get(k, 0) for e in engines)
+              for k in ("launches", "ops_completed", "recon_launches",
+                        "recon_ops_completed")}
+    summed["flushes"] = sum(v for e in engines for k, v in e.items()
+                            if k.startswith("flush_") and k != "flush_ms")
+    return {"steps": clock.steps, "engine": summed, "daemons": len(engines),
+            "stripes": len(manifest), "objects": len(stored)}
 
 
 def wait_until(pred, timeout: float, what: str, interval: float = 0.01):
@@ -2622,6 +3016,50 @@ def main():
         f"ops a launch; {eng['store_kicks']} store kicks; WALs on "
         f"{cluster['fs']} (host clock) on {card}")
 
+    log(f"[rgw] MiniCluster({CLUSTER_MONS} mons, {CLUSTER_OSDS} OSDs, "
+        f"device {dev}) on WALStores, the option defaults but the "
+        f"heartbeat grace; RGWService(require_auth=True) at its option "
+        f"defaults (pool_size 16, max_concurrent 64, stripe_size 4 MiB) on "
+        f"an EC data pool k={K} m={M} jerasure reed_sol_van, pg_num "
+        f"{CLUSTER_PG_NUM}, rule 1, and the replicated meta pool; scale "
+        f"cut: {RGW_N} PUTs of {RGW_OBJ >> 20} MiB and one multipart upload "
+        f"of {RGW_PARTS} x {RGW_PART >> 20} MiB, not a deployment's "
+        f"millions of objects")
+    rgw = rgw_phase(dev, CLUSTER_MONS, CLUSTER_OSDS, RGW_N, RGW_OBJ,
+                    RGW_PART, RGW_PARTS, CLUSTER_PG_NUM)
+    close_phase("rgw")
+    gst = rgw["steps"]
+    for name, kernels in (("put", ("gf_words", "crc32c_batch")),
+                          ("multipart_put", ("gf_words", "crc32c_batch")),
+                          ("degraded_get", ("gf_expand", "gf_planes"))):
+        for k in kernels:
+            if gst[name]["launches"].get(k, 0) <= 0:
+                fail(f"rgw: {k} was not launched in the {name} step")
+    mb, mp_mb = RGW_N * RGW_OBJ / 1e6, RGW_PARTS * RGW_PART / 1e6
+    eng = rgw["engine"]
+    deg = gst["degraded_get"]
+    log(f"[rgw] PUT {mb / gst['put']['s']:.2f} MB/s, GET "
+        f"{mb / gst['get']['s']:.2f} MB/s ({RGW_N} x {RGW_OBJ >> 20} MiB, "
+        f"{RGW_INFLIGHT} in flight); multipart "
+        f"upload "
+        f"{mp_mb / gst['multipart_put']['s']:.2f} MB/s ({RGW_PARTS} parts of "
+        f"{RGW_PART >> 20} MiB in {rgw['stripes']} stripes), its GET "
+        f"{mp_mb / gst['multipart_get']['s']:.2f} MB/s; degraded GET "
+        f"{deg['s'] * 1e3 / len(deg['ms']):.1f} ms an object of the wall "
+        f"({len(deg['ms'])} objects, {RGW_INFLIGHT} in flight, "
+        f"latency median {float(np.median(deg['ms'])):.1f} ms, max "
+        f"{max(deg['ms']):.1f} ms); revive to clean "
+        f"{gst['recovery']['s']:.3f} s; every PUT ETag equals md5, every "
+        f"GET and degraded GET and all {rgw['objects'] * (K + M)} shards "
+        f"and hinfos of the {rgw['objects']} data objects equal what was "
+        f"written and its CPU re-encode; engines summed over "
+        f"{rgw['daemons']} daemons: {eng['flushes']} write flushes, "
+        f"{eng['launches']} launches, "
+        f"{eng['ops_completed'] / max(eng['launches'], 1):.2f} ops a "
+        f"launch; {eng['recon_launches']} recon launches, "
+        f"{eng['recon_ops_completed'] / max(eng['recon_launches'], 1):.2f} "
+        f"ops a launch (host clock) on {card}")
+
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
     log(f"[launches] {json.dumps(phase_counts)}")
@@ -2639,7 +3077,9 @@ def main():
                         ("store", "crc32c_batch"),
                         ("balancer", "crush_straw2"),
                         ("controlplane", "crush_straw2"),
-                        ("controlplane", "pgmap_fold")):
+                        ("controlplane", "pgmap_fold"),
+                        ("rgw", "gf_words"), ("rgw", "crc32c_batch"),
+                        ("rgw", "gf_expand"), ("rgw", "gf_planes")):
         if phase_counts[phase][name] <= 0:
             fail(f"kernel {name} was not launched on its phase {phase}")
 
@@ -2893,17 +3333,20 @@ def main():
             f"ms ({tot['gaps']} gaps), wall {wall_ms:.1f} ms; device busy "
             f"<= {busy:.2f} ms ({busy / wall_ms:.2%} of the wall, idle "
             f">= {1 - busy / wall_ms:.2%}) on {card}")
-    for lane, names in (("write", ("write", "degraded_write")),
-                        ("recon", ("degraded_read", "recovery"))):
+    for tag, steps, lane, names in (
+            ("cluster", st, "write", ("write", "degraded_write")),
+            ("cluster", st, "recon", ("degraded_read", "recovery")),
+            ("rgw", gst, "write", ("put", "multipart_put")),
+            ("rgw", gst, "recon", ("degraded_get", "recovery"))):
         agg = dict.fromkeys(("launches", "dispatch_s", "compute_s"), 0)
         wall_ms = busy = 0.0
         for name in names:
-            wall_ms += st[name]["s"] * 1e3
+            wall_ms += steps[name]["s"] * 1e3
             for k in agg:
-                agg[k] += st[name]["lanes"].get(lane, {}).get(k, 0)
+                agg[k] += steps[name]["lanes"].get(lane, {}).get(k, 0)
             busy += sum(n * kernel_ms[k]
-                        for k, n in st[name]["launches"].items())
-        log(f"[profile] cluster {lane} lane ({' + '.join(names)} steps, "
+                        for k, n in steps[name]["launches"].items())
+        log(f"[profile] {tag} {lane} lane ({' + '.join(names)} steps, "
             f"{CLUSTER_OSDS} OSDs): {agg['launches']} profiled launches, "
             f"dispatch {agg['dispatch_s'] * 1e3:.1f} ms, compute "
             f"{agg['compute_s'] * 1e3:.1f} ms summed over the daemons, "

@@ -31,11 +31,13 @@ import pytest
 import torch
 
 from ceph_tpu.os_store.objectstore import Transaction as RTransaction
+from ceph_tpu.osd import messages as RM
 from ceph_tpu.osdc.librados import Error as RError
 from ceph_tpu.vstart import MiniCluster as RMiniCluster
 from ceph_tpu_torch.core.admin_socket import admin_command
 from ceph_tpu_torch.ec import create_erasure_code
 from ceph_tpu_torch.os_store.objectstore import Transaction as PTransaction
+from ceph_tpu_torch.osd import messages as PM
 from ceph_tpu_torch.osd.pg import META_OID, SNAPMAP_OID
 from ceph_tpu_torch.osdc.librados import Error as PError
 from ceph_tpu_torch.scrub.crc32c import crc32c
@@ -455,3 +457,95 @@ class TestClusterAgainstCephTpu:
             with primary.lock:
                 assert pg.last_deep_scrub > stamp, pkg
         assert got == {"port": "raised", "ceph_tpu": 0}
+
+    def test_read_resend_joins_the_read_in_flight(self, pair):
+        """Two resends of an EC read that is still gathering its
+        shards: the port joins both to the read in flight (one fan-out
+        of sub-reads, one reply, on the last copy's session) and asks
+        each remote shard not yet answered once more, on the first
+        resend only; ceph_tpu starts a read for each copy (three
+        fan-outs, three replies).  The bytes are the same.  Without the
+        join, reads slower than the Objecter's 2 s resend each grow
+        another fan-out on a loaded host."""
+        name = NAMES[4]
+        want = payloads(1)[name]
+
+        def op_and_resend(c, mod, tid):
+            pgid, _acting = placement(c, "ecp", name)
+            primary = c.osds[c.pg_primary(pgid)]
+            replies, asked = [], []
+
+            class Session:
+                def send_message(self, m):
+                    replies.append((self, m))
+
+            def send_to_osd(osd, m):
+                if isinstance(m, mod.MOSDECSubOpRead):
+                    asked.append(m.shard)
+                send(osd, m)
+
+            sessions = [Session(), Session(), Session()]
+            send = primary.send_to_osd
+            with primary.lock:
+                primary.send_to_osd = send_to_osd
+                backend = primary.pgs[pgid].backend
+                before = backend._read_tid
+                for n, ses in enumerate(sessions):  # the op, 2 resends
+                    msg = mod.MOSDOp(
+                        tid=tid, client="client.resend-test",
+                        pgid=str(pgid), oid=name,
+                        epoch=primary.osdmap.epoch,
+                        ops=[{"op": "read", "off": 0}], flags=0)
+                    msg.connection = ses
+                    primary.pgs[pgid].do_op(msg)
+                    if n == 0:
+                        first = sorted(asked)
+                fanouts = backend._read_tid - before
+                del primary.send_to_osd
+            assert first and wait_for(
+                lambda: len(replies) >= fanouts, timeout=30)
+            time.sleep(0.5)     # room for a reply that should not come
+            return (fanouts, len(asked) // len(first),
+                    sorted(asked) == sorted(first * (len(asked) //
+                                                     len(first))),
+                    sorted(sessions.index(ses) for ses, _m in replies),
+                    [(m.rc, bytes.fromhex(m.results[0]["data"]))
+                     for _s, m in replies])
+
+        assert op_and_resend(pair["port"][0], PM, 424242) == \
+            (1, 2, True, [2], [(0, want)])
+        assert op_and_resend(pair["ceph_tpu"][0], RM, 424242) == \
+            (3, 3, True, [0, 1, 2], [(0, want)] * 3)
+
+    def test_lost_sub_read_is_asked_again_on_the_resend(self, pair):
+        """One sub-read reply of a client's EC read is lost on its way
+        to the primary.  The read completes inside the Objecter's 10 s
+        op timeout (``S3Client``'s socket timeout too) in both
+        packages: in the port the Objecter's first resend (after 2 s)
+        joins the read and asks the unanswered shard again, with no
+        second fan-out; in ceph_tpu the resend reads afresh."""
+        name = NAMES[5]
+        want = payloads(1)[name]
+        got = {}
+        for pkg, (c, _r, ios) in pair.items():
+            pgid, _acting = placement(c, "ecp", name)
+            primary = c.osds[c.pg_primary(pgid)]
+            with primary.lock:
+                backend = primary.pgs[pgid].backend
+                tid = backend._read_tid + 1
+            handle, dropped = backend.handle_sub_read_reply, []
+
+            def drop_one(msg):
+                if msg.tid == tid and not dropped:
+                    dropped.append(msg.shard)
+                    return
+                handle(msg)
+
+            backend.handle_sub_read_reply = drop_one
+            try:
+                data = ios["ecp"].read(name)
+            finally:
+                del backend.handle_sub_read_reply
+            got[pkg] = (data == want, len(dropped),
+                        backend._read_tid - tid + 1)
+        assert got == {"port": (True, 1, 1), "ceph_tpu": (True, 1, 2)}

@@ -601,3 +601,51 @@ def test_mini_cluster_on_the_card(dev):
         assert written[name] > before[name], name
     for name in ("gf_expand", "gf_planes"):
         assert after[name] > written[name], name
+
+
+def test_gateway_on_the_card(dev):
+    """The port's gateway on the card: a 4-OSD ``MiniCluster`` with
+    ``start_rgw`` on a k=2 m=1 EC data pool (rule 1), one SigV4-signed
+    multipart upload whose parts stripe (``stripe_size`` 64 KiB), and
+    its GET byte for byte; the write lane's K1 and K6 launched."""
+    import hashlib
+    from ceph_tpu_torch.rgw import S3Client
+    from ceph_tpu_torch.vstart import MiniCluster
+    rng = np.random.default_rng(23)
+    parts = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+             for n in (3 * (64 << 10) + 5, 100 << 10)]
+    c = MiniCluster(n_mons=1, n_osds=4, device=dev)
+    try:
+        c.start()
+        r = c.rados()
+        rc, outs, _ = r.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "k2m1",
+            "profile": ["k=2", "m=1", "plugin=jerasure",
+                        "technique=reed_sol_van"]})
+        assert rc == 0, outs
+        gw = c.start_rgw(require_auth=True, stripe_size=64 << 10,
+                         data_pool_opts={"pool_type": "erasure",
+                                         "erasure_code_profile": "k2m1",
+                                         "pg_num": 4, "rule": 1})
+        c.wait_for_clean(timeout=60)
+        user = gw.store.create_user("cuda")
+        cl = S3Client("127.0.0.1", gw.port, user["access_key"],
+                      user["secret_key"])
+        assert cl.make_bucket("b") == 200
+        before = build.counts()
+        st, up = cl.initiate_multipart("b", "mp")
+        assert st == 200
+        for n, data in enumerate(parts, 1):
+            assert cl.put_part("b", "mp", up, n, data) == (
+                200, hashlib.md5(data).hexdigest())
+        st, etag = cl.complete_multipart("b", "mp", up)
+        assert st == 200 and etag == hashlib.md5(b"".join(
+            hashlib.md5(p).digest() for p in parts)).hexdigest() + "-2"
+        after = build.counts()
+        assert cl.get("b", "mp") == (200, b"".join(parts))
+        manifest = gw.store.head_object("b", "mp")["parts"]
+    finally:
+        c.stop()
+    assert len(manifest) == 4 + 2       # 4 stripes, then 2
+    for name in ("gf_words", "crc32c_batch"):
+        assert after[name] > before[name], name

@@ -658,6 +658,13 @@ def _normalized(reply):
     return rc, outs, out
 
 
+def _health_logged(mon):
+    """Whether ``mon``'s committed cluster log holds a health check."""
+    with mon.lock:
+        return any(e.get("text", "").startswith("Health check failed")
+                   for e in mon.services["log"].last(20))
+
+
 def _run_script(mon_pkg, client_pkg):
     ports = free_ports(3)
     _, mons = start_mons(mon_pkg, ports)
@@ -665,8 +672,16 @@ def _run_script(mon_pkg, client_pkg):
     try:
         assert full_quorum(mons)
         mc = PKG[client_pkg][0].MonClient(monmap_of(client_pkg, ports))
-        replies = [_normalized(mc.command(dict(c), timeout=20))
-                   for c in SCRIPT]
+        replies = []
+        for c in SCRIPT:
+            replies.append(_normalized(mc.command(dict(c), timeout=20)))
+            if c is SCRIPT[0]:
+                # the leader's health tick logs the first pool's PGs as
+                # stuck on its own clock: wait until every mon holds
+                # that entry, so that it precedes the script's own log
+                # lines and counts the same PGs in every run
+                assert wait_for(lambda: all(_health_logged(m)
+                                            for m in mons), timeout=20)
         lc = {m.paxos.last_committed for m in mons}
         assert wait_for(lambda: len({m.paxos.last_committed
                                      for m in mons}) == 1, timeout=10), lc
