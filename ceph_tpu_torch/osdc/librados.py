@@ -461,7 +461,10 @@ class IoCtx:
         return sorted(oids)
 
     def _pgls(self, pgid, timeout):
-        """Direct-to-PG listing op (bypasses the name→PG hash)."""
+        """Direct-to-PG listing op (bypasses the name→PG hash).  The
+        op is pinned to `pgid` and its resend schedule starts as
+        ``op_submit``'s does, so a resend (a slow reply, a map
+        advance, a reset session) asks the same PG again."""
         import threading as _t
         ev = _t.Event()
         box: list = []
@@ -475,7 +478,8 @@ class IoCtx:
             from .objecter import _Op
             op = _Op(self.objecter._tid, self.pool_id, "",
                      [{"op": "pgls"}], on_reply)
-            op.pgid = pgid
+            op.pgid = op.pg_pin = pgid
+            self.objecter._reset_resend(op)
             self.objecter.inflight[op.tid] = op
             _up, _upp, _acting, primary = \
                 self.objecter.osdmap.pg_to_up_acting_osds(pgid)

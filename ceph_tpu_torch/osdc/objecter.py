@@ -34,7 +34,8 @@ from ..tools.osdmaptool import shared_osdmap_from_dict
 class _Op:
     __slots__ = ("tid", "pool", "oid", "ops", "on_reply", "pgid",
                  "target_osd", "attempts", "submitted", "direct",
-                 "next_resend", "resend_delay", "span", "qos_client")
+                 "next_resend", "resend_delay", "span", "qos_client",
+                 "pg_pin")
 
     def __init__(self, tid, pool, oid, ops, on_reply, direct=False,
                  qos_client=None):
@@ -48,6 +49,9 @@ class _Op:
         self.attempts = 0
         self.submitted = time.monotonic()
         self.direct = direct        # skip cache-tier overlay redirect
+        # a PG-addressed op (pgls) names no object: every send, the
+        # resends included, goes to this PG's primary
+        self.pg_pin: PGid | None = None
         # exponential-backoff resend schedule (reset on map advance)
         self.next_resend = 0.0
         self.resend_delay = 0.0
@@ -227,9 +231,7 @@ class Objecter(Dispatcher):
                         continue
                     if self.backoffs.blocked(op.target_osd, op.pgid):
                         continue    # parked: the server said stop
-                    pgid, primary = self._calc_target(
-                        self._effective_pool(op.pool, op.direct),
-                        op.oid)
+                    pgid, primary = self._op_target(op)
                     moved = (pgid != op.pgid
                              or primary != op.target_osd)
                     if moved or self._idempotent(op):
@@ -272,9 +274,7 @@ class Objecter(Dispatcher):
                 if self._idempotent(op):
                     self._send_op(op)       # re-targets internally
                 else:
-                    pgid, primary = self._calc_target(
-                        self._effective_pool(op.pool, op.direct),
-                        op.oid)
+                    pgid, primary = self._op_target(op)
                     if pgid != op.pgid or primary != op.target_osd:
                         self._send_op(op)
             for ev in self._map_waiters:
@@ -288,6 +288,15 @@ class Objecter(Dispatcher):
         _up, _upp, _acting, primary = \
             self.osdmap.pg_to_up_acting_osds(pgid)
         return pgid, primary
+
+    def _op_target(self, op: _Op) -> tuple[PGid, int]:
+        """The op's PG and primary under the current map: its pinned
+        PG for a PG-addressed op, else the PG its name hashes to."""
+        if op.pg_pin is not None:
+            return op.pg_pin, self.osdmap.pg_to_up_acting_osds(
+                op.pg_pin)[3]
+        return self._calc_target(
+            self._effective_pool(op.pool, op.direct), op.oid)
 
     # -- submission --------------------------------------------------------
     def set_qos_tag(self, tag: str | None):
@@ -334,8 +343,7 @@ class Objecter(Dispatcher):
         # resends show their (possibly new) target computation
         cspan = None if op.span is None else self.tracer.start_span(
             "crush_map", parent=op.span, tags={"layer": "crush"})
-        pgid, primary = self._calc_target(
-            self._effective_pool(op.pool, op.direct), op.oid)
+        pgid, primary = self._op_target(op)
         if cspan is not None:
             cspan.set_tag("pgid", str(pgid))
             cspan.set_tag("primary", primary)

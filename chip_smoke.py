@@ -142,10 +142,10 @@ time):
      through librados: an EC pool k=8 m=3 ``jerasure reed_sol_van`` of
      32 PGs on rule 1 (``choose_indep``, one shard of every object on
      each OSD), the OSDs' options at their defaults but for the
-     heartbeat grace; 32 objects of 4 MiB written and read back 16 at a
+     heartbeat grace; 16 objects of 4 MiB written and read back 16 at a
      time (``rados bench``'s default); osd.3 killed and marked down
-     (heartbeat grace 20 s, upstream's), 16 objects rewritten and all 32
-     read degraded; the revive, with its 16 shards rebuilt through the recon
+     (heartbeat grace 20 s, upstream's), 8 objects rewritten and all 16
+     read degraded; the revive, with its 8 shards rebuilt through the recon
      lane, until every PG is clean; every shard and hinfo of every OSD
      against a re-encode on the CPU; a deep scrub of every PG; one
      parity byte flipped with its hinfo rewritten to match, found by the
@@ -178,6 +178,45 @@ time):
      their median and max, launches) and a summary line (PUT, GET and
      multipart MB/s, degraded GET ms an object, revive to clean, the
      write lane's ops a launch summed over the daemons);
+   - rbd (``rbd_phase``), on a ``MiniCluster`` of its own started after
+     the rgw phase's has stopped (3 mons, 11 OSDs, ``device=cuda``,
+     WALStores, the option defaults but the heartbeat grace), every
+     launch count set to 0 just before it: an EC pool ``rbd`` k=8 m=3
+     ``jerasure reed_sol_van`` of 32 PGs on rule 1, created through
+     librados and read back from the mon (erasure, the k8m3 profile,
+     rule 1) before the first ``rbd`` command; the ``rbd`` CLI in
+     process (``tools.rbd.main``) and the ``Image`` API: ``create`` of a
+     16 MiB image at order 22 (4 objects of 4 MiB) and ``info``;
+     ``import`` of a seeded 16 MiB file as ``img0`` and its ``export``
+     byte for byte; ``bench`` write and read with I/Os of 4 MiB;
+     ``snap create img0@s1``, 8 seeded partial writes of 64 KiB (EC
+     read-modify-writes), the head against a host model and ``img0@s1``
+     against the import; ``snap create img0@s2``, ``export-diff
+     --from-snap s1`` applied by ``import-diff`` to a second image that
+     holds ``s1``'s bytes, compared with ``s2``; ``snap protect``,
+     ``clone img0@s1 child``, one object written into it, ``flatten``,
+     ``child`` whole; osd.3 killed, marked down by ``osd down`` and
+     waited for in the OSDs' and the client's maps, every PG active, ``img0`` and ``child`` read whole
+     degraded and one object written; the revive, until every PG is
+     clean; every OSD's shards and hinfos of every ``rbd_data.*``
+     object against a re-encode of the host models on the CPU and the
+     host CRC-32C; then site B (``MiniCluster(1 mon, 11 OSDs)``, the
+     same pool) and ``MirrorDaemon(remote=A, local=B)`` on its own
+     thread: a journaled 8 MiB image with 8 seeded writes of 64 KiB,
+     a discard, a shrink and a snapshot, replayed until the daemon's
+     position is A's journal head and compared on both sites, ``mirror
+     demote`` on A and ``mirror promote`` on B (a write on B accepted,
+     one on A refused as non-primary); a snapshot-mode 8 MiB image with
+     two mirror snapshots and seeded writes between them, each synced
+     to B before the next writes, compared; any failed object read of
+     the phase's handles (``Image.read`` returns zeros for it), any
+     read not done in 300 s (dumped) or any entry in the daemon's
+     ``errors`` fails the phase; one ``[rbd]`` line a step (wall, bytes,
+     each I/O's latency with their median and max, launches) and a
+     summary line (import, export and degraded read MB/s, bench ops/s
+     and MB/s, partial-write median and max, revive to clean, the
+     mirror lag from the last journaled event to B equal, the write
+     lane's ops a launch summed over the daemons);
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -198,8 +237,8 @@ time):
    ``[controlplane]`` line (health, summary, numpy and device folds with
    the copy-in, K11's graph-timed ms); then
    ``[profile]`` lines: per lane (write, recon, comp, fingerprint, store,
-   and the cluster's and the gateway's write and recon lanes summed
-   over their daemons)
+   and the cluster's, the gateway's and the block images' write and
+   recon lanes summed over their daemons)
    and for the crush mappings, the device profiler's launches, dispatch,
    compute (the host's wait at the CUDA events) and gap against the lane's wall,
    and a device-busy estimate (every launch at its kernel's graph-timed
@@ -281,11 +320,12 @@ BOOT_OSD = CRUSH_HOSTS * CRUSH_PER_HOST - 1  # the mon phase's booted OSD
 HEALTH_BAR_MS = 100.0                   # bench.py:1567, reported only
 FOLD_EDGE_ROWS = (1, 31, 32, 33, 1023, 65537)   # K11 edge row counts
 CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_PG_NUM = 3, K + M, 32  # live cluster
-# RADOS's default object size; 32 objects, not 64, keep the smoke well
+# RADOS's default object size; 16 objects, not 64 or 32, keep the smoke
 # inside its run's 1200 s: at 64 the cluster phase took 380 s on an H100
-# 80GB HBM3 host, and the smoke would have ended near 840 s there
-CLUSTER_N, CLUSTER_OBJ = 32, 4 << 20
-CLUSTER_REWRITE, CLUSTER_KILL = 16, 3   # rewritten while osd.3 is down
+# 80GB HBM3 host, at 32 up to 230 s, and with the rbd phase a slow host
+# had spent 840 s before that phase's second cluster started
+CLUSTER_N, CLUSTER_OBJ = 16, 4 << 20
+CLUSTER_REWRITE, CLUSTER_KILL = 8, 3    # rewritten while osd.3 is down
 CLUSTER_INFLIGHT = 16                   # rados bench's default -t
 STUCK_S = 300.0                         # a read's wait before its dump
 CLUSTER_HB_GRACE = 20.0                 # upstream's osd_heartbeat_grace
@@ -295,6 +335,19 @@ RGW_PART, RGW_PARTS = 8 << 20, 2        # multipart: 2 stripes of 4 MiB a part
 # the client's 10 s socket timeout on an H100 80GB HBM3 host
 RGW_INFLIGHT = 2
 RGW_KILL = 3
+# rbd: an image of 4 objects of RADOS's default 4 MiB (order 22), 8
+# partial writes of 64 KiB (EC read-modify-writes), mirror images of
+# 8 MiB with 8 journaled writes of 64 KiB (journal rows carry the data
+# as hex JSON); cut by 4 from 64 MiB, 32 writes, 16 MiB and 32 writes:
+# at those sizes the phase took 480 s up to the revive on an H100 80GB
+# HBM3 host, and at 16 MiB and 16 journaled writes 354 s on another
+RBD_SIZE, RBD_ORDER = 16 << 20, 22
+RBD_WRITES, RBD_WRITE = 8, 64 << 10
+RBD_KILL = 3
+MIRROR_SIZE, MIRROR_WRITES, MIRROR_WRITE = 8 << 20, 8, 64 << 10
+# the daemon's pass: each one lists the remote pool and reads every
+# journal whole, in the process that serves both sites
+MIRROR_INTERVAL = 1.0
 
 
 def fail(msg: str):
@@ -1066,6 +1119,26 @@ def pgs_clean(c, n_pgs: int) -> bool:
     return seen == n_pgs
 
 
+def unclean_pgs(c) -> list:
+    """(pgid, state, missing, peer_missing, backfill targets, epoch)
+    of every primary PG that ``pgs_clean`` does not count as clean."""
+    out = []
+    for i, d in sorted(c.osds.items()):
+        with d.lock:
+            for pg in d.pgs.values():
+                if not pg.is_primary:
+                    continue
+                peer = {o: sorted(v)[:4] for o, v in pg.peer_missing.items()
+                        if v}
+                if pg.state != "active+clean" or pg.missing or peer \
+                        or pg.backfill_targets:
+                    out.append((str(pg.pgid), f"osd.{i}", pg.state,
+                                sorted(pg.missing)[:4], peer,
+                                sorted(pg.backfill_targets),
+                                d.osdmap.epoch))
+    return out
+
+
 def cpu_shards(ec_cpu, data: bytes) -> list[bytes]:
     """The k+m shards of one object, encoded on the CPU (the plain
     versions)."""
@@ -1673,6 +1746,503 @@ def rgw_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
                             if k.startswith("flush_") and k != "flush_ms")
     return {"steps": clock.steps, "engine": summed, "daemons": len(engines),
             "stripes": len(manifest), "objects": len(stored)}
+
+
+def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
+              order: int, n_writes: int, write: int, m_size: int,
+              m_writes: int, m_write: int, seed: int = 47) -> dict:
+    """The port's block images on ``dev``: ``MiniCluster(n_mons, n_osds,
+    device=dev)`` on WALStores with the OSDs' options at their defaults
+    but the heartbeat grace, and one EC pool ``rbd`` (k=8 m=3
+    ``jerasure reed_sol_van``, ``pg_num`` PGs, rule 1) created through
+    librados and read back from the mon before the first ``rbd``
+    command.  The ``rbd`` CLI runs in process (``tools.rbd.main``) for
+    its verbs, the ``Image`` API for the rest.  Steps, each with its
+    wall time, bytes, each I/O's latency and kernel launches: ``create``
+    of a ``size`` image at ``order`` (the bench's), ``import`` of a
+    seeded file of ``size`` bytes as ``img0`` and its ``export``
+    compared byte for byte; ``bench`` write and read of the first image
+    with I/Os of one object; ``snap create img0@s1``, ``n_writes``
+    seeded partial writes of ``write`` bytes (EC read-modify-writes),
+    the head against a host model and the image at ``s1`` against the
+    import, byte for byte; ``snap create img0@s2``, ``export-diff
+    --from-snap s1`` applied by ``import-diff`` to a second image that
+    holds ``s1``'s bytes, compared with ``s2``; ``snap protect``,
+    ``clone img0@s1 child``, one object's write into ``child``,
+    ``flatten`` and ``child`` compared whole; osd ``RBD_KILL`` killed,
+    marked down by ``osd down`` and waited for in the OSDs' and the
+    client's maps until every PG is active, ``img0`` and ``child`` read whole degraded and
+    compared, and one object's write; the revive, until every PG is
+    clean; every OSD's shards and hinfos of every ``rbd_data.*`` object
+    against a re-encode of the host model on the CPU and the host
+    CRC-32C.  Then a second cluster, site B (1 mon, ``n_osds`` OSDs,
+    the same pool), and ``MirrorDaemon(remote=site A, local=site B)`` on
+    its own thread: a journaled image of ``m_size`` bytes with
+    ``m_writes`` seeded writes of ``m_write`` bytes, one discard, one
+    resize and one snapshot, replayed until the daemon's position is
+    site A's journal head and compared byte for byte, ``mirror demote``
+    on A and ``mirror promote`` on B (a write on B accepted, one on A
+    refused as non-primary); a snapshot-mode image with two mirror
+    snapshots and seeded writes between them, synced to B and compared.
+    A read that fails comes back as zeros from ``Image.read``: every
+    read is compared with its model, any failed object read of the
+    phase's own handles fails it, and a read not done in ``STUCK_S`` is
+    dumped by ``dump_stuck``.  The daemon's ``errors`` must stay empty."""
+    import random
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.kernels import build
+    from ceph_tpu_torch.osd.osdmap import TYPE_ERASURE
+    from ceph_tpu_torch.osdc.librados import ObjectNotFound
+    from ceph_tpu_torch.rbd import Image
+    from ceph_tpu_torch.rbd.image import _journal_oid
+    from ceph_tpu_torch.rbd.mirror import MirrorDaemon
+    from ceph_tpu_torch.tools import rbd as rbd_tool
+    from ceph_tpu_torch.vstart import MiniCluster
+    profile = {"plugin": "jerasure", "technique": "reed_sol_van",
+               "k": K, "m": M}
+    ec_cpu = create_erasure_code(profile, device="cpu")
+    obj = 1 << order
+    n_obj = size // obj
+    rng = np.random.default_rng(seed)
+    seeded = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+    clock = StepClock("rbd", dev)
+    osd_config = {"osd_heartbeat_grace": CLUSTER_HB_GRACE,
+                  "device_profiling_enable": True}
+    tmp = tempfile.mkdtemp(prefix="rbd_smoke_")
+    read_errors = []          # failed object reads of the phase's handles
+
+    def step(name, nbytes=0, ms=()):
+        checked(name)
+        extra = (f", {nbytes / 1e6:.1f} MB" if nbytes else "") \
+            + latencies(list(ms))
+        out = clock.close(name, extra)
+        out["ms"], out["bytes"] = list(ms), nbytes
+
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    class Watched:
+        """An ioctx whose failed reads (other than a missing object)
+        are recorded: ``Image.read`` turns them into zeros."""
+
+        def __init__(self, io):
+            self._io = io
+
+        def __getattr__(self, name):
+            return getattr(self._io, name)
+
+        def read(self, oid, *a, **kw):
+            try:
+                return self._io.read(oid, *a, **kw)
+            except ObjectNotFound:
+                raise
+            except Exception as e:              # noqa: BLE001
+                read_errors.append((oid, repr(e)))
+                raise
+
+    def checked(what):
+        if read_errors:
+            fail(f"rbd: {what}: {len(read_errors)} object reads failed "
+                 f"(Image.read returns zeros for them): {read_errors[:4]}")
+
+    def guarded(c, objecter, what, fn, *a):
+        """fn(*a) on a thread of its own: its state dumped by
+        ``dump_stuck`` and the phase failed if it is not done in
+        ``STUCK_S``."""
+        box = {}
+
+        def run():
+            try:
+                box["out"] = fn(*a)
+            except BaseException as e:          # noqa: BLE001
+                box["err"] = e
+
+        th = threading.Thread(target=run, name=f"rbd-{what}", daemon=True)
+        th.start()
+        th.join(STUCK_S)
+        if th.is_alive():
+            with objecter.lock:
+                oids = sorted({op.oid for op in objecter.inflight.values()})
+            for oid in oids:
+                dump_stuck(c, objecter, oid)
+            fail(f"rbd: {what} not done in {STUCK_S:.0f} s")
+        if "err" in box:
+            fail(f"rbd: {what}: {box['err']!r}")
+        return box["out"]
+
+    def read_whole(c, r, img, what):
+        """The image read whole, one object an I/O: (bytes, each I/O's
+        ms, each I/O's gf_planes launches)."""
+        out, ms, k2 = bytearray(), [], []
+        step_ = img.layout.object_size
+        for off in range(0, img.size(), step_):
+            before = build.counts()["gf_planes"]
+            piece, t = timed(guarded, c, r.objecter, f"{what} at {off}",
+                             img.read, off, min(step_, img.size() - off))
+            out += piece
+            ms.append(t)
+            k2.append(build.counts()["gf_planes"] - before)
+        checked(what)
+        return bytes(out), ms, k2
+
+    def same(got, want, what):
+        if got != want:
+            diff = next(i for i in range(min(len(got), len(want)))
+                        if got[i] != want[i]) if len(got) == len(want) \
+                else None
+            fail(f"rbd: {what}: {len(got)} bytes differ from the "
+                 f"{len(want)} expected (first differing byte {diff})")
+
+    def wait_clean(c, what, timeout=300.0):
+        """Every PG clean (``pgs_clean``); after ``timeout`` the phase
+        fails with the OSDs up in osd.0's map and the PGs not clean."""
+        deadline = time.monotonic() + timeout
+        while not pgs_clean(c, pg_num):
+            if time.monotonic() > deadline:
+                m = c.osds[0].osdmap
+                fail(f"rbd: {what}: not in {timeout:.0f} s; OSDs up in "
+                     f"osd.0's map (epoch {m.epoch}) "
+                     f"{[o for o in sorted(c.osds) if m.is_up(o)]}; PGs "
+                     f"not clean {unclean_pgs(c)}")
+            time.sleep(0.05)
+
+    def start_site(nm):
+        c = MiniCluster(n_mons=nm, n_osds=n_osds, device=dev,
+                        osd_config=osd_config)
+        clusters.append(c)
+        c.start(timeout=60)
+        clock.daemons.extend(c.osds.values())
+        r = c.rados()
+        rc, outs, _ = r.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "k8m3",
+            "profile": [f"{k}={v}" for k, v in profile.items()]})
+        if rc:
+            fail(f"rbd: erasure-code-profile set: {outs}")
+        r.create_pool("rbd", pg_num=pg_num, pool_type="erasure",
+                      erasure_code_profile="k8m3", rule=1)
+        wait_clean(c, f"{nm}-mon site's PGs clean after the pool's "
+                      f"creation")
+        # the pool as the mon has it: tools/rbd.py makes a replicated
+        # pool of 8 PGs when the named one is missing
+        rc, outs, dump = r.mon_command({"prefix": "osd dump"})
+        pool = {p["name"]: p for p in dump["pools"]}.get("rbd") \
+            if rc == 0 else None
+        if pool is None:
+            fail(f"rbd: no pool rbd in the mon's map: {outs}")
+        rc, outs, prof = r.mon_command({
+            "prefix": "osd erasure-code-profile get",
+            "name": pool["erasure_code_profile"]})
+        got = (pool["type"], pool["erasure_code_profile"],
+               pool["crush_rule"], pool["size"], pool["pg_num"],
+               rc == 0 and prof.get("k"), rc == 0 and prof.get("m"),
+               rc == 0 and prof.get("technique"))
+        if got != (TYPE_ERASURE, "k8m3", 1, K + M, pg_num, str(K), str(M),
+                   "reed_sol_van"):
+            fail(f"rbd: pool rbd is not erasure k={K} m={M} on rule 1: "
+                 f"(type, profile, rule, size, pg_num, k, m, technique) "
+                 f"= {got}, pool {pool}")
+        mon = ",".join(f"{a.host}:{a.port}" for a in c.monmap.mons.values())
+        return c, r, r.open_ioctx("rbd"), mon, pool
+
+    def rbd_cmd(mon, *argv):
+        """``rbd -m MON -p rbd argv`` in process: (stdout, ms)."""
+        try:
+            (rc, out, err), ms = timed(cli, rbd_tool,
+                                       ["-m", mon, "-p", "rbd", *argv])
+        except (Exception, SystemExit) as e:      # noqa: BLE001
+            fail(f"rbd: rbd {' '.join(map(str, argv))}: {e!r}")
+        if rc:
+            fail(f"rbd: rbd {' '.join(map(str, argv))}: rc {rc}: {err}")
+        return out, ms
+
+    clusters = []
+    models = {}             # image → its bytes now
+    try:
+        c, r, io, mon, pool = start_site(n_mons)
+        log(f"[rbd] pool rbd read back from the mon: type erasure "
+            f"({pool['type']}), profile k8m3, crush_rule "
+            f"{pool['crush_rule']}, size {pool['size']}, min_size "
+            f"{pool['min_size']}, pg_num {pool['pg_num']}")
+        wio = Watched(io)
+        step("start")
+        # 1. the bench's image, and 2. the seeded file through import
+        _, ms0 = rbd_cmd(mon, "create", "bench0", "--size", size,
+                         "--order", order)
+        out, ms1 = rbd_cmd(mon, "info", "bench0")
+        if json.loads(out)["num_objs"] != n_obj:
+            fail(f"rbd: info bench0: {out}")
+        step("create", 0, [ms0, ms1])
+        src = os.path.join(tmp, "seeded.bin")
+        with open(src, "wb") as f:
+            f.write(seeded)
+        out, ms = rbd_cmd(mon, "import", src, "img0")
+        if out.strip() != f"imported {size} bytes":
+            fail(f"rbd: import: {out!r}")
+        models["img0"] = bytearray(seeded)
+        with Image(io, "img0", read_only=True) as img:
+            # the tool's default order; an object's write below (the
+            # whole image when it is smaller)
+            iobj = min(img.layout.object_size, size)
+        step("import", size, [ms])
+        dst = os.path.join(tmp, "export.bin")
+        _, ms = rbd_cmd(mon, "export", "img0", dst)
+        with open(dst, "rb") as f:
+            same(f.read(), seeded, "export of img0")
+        step("export", size, [ms])
+        # 3. rbd bench, one object an I/O
+        bench = {}
+        for io_type in ("write", "read"):
+            # --seconds past the run: the tool stops at 10 s otherwise
+            out, ms = rbd_cmd(mon, "bench", "bench0", "--io-type", io_type,
+                              "--io-size", obj, "--io-total", size,
+                              "--seconds", 1200)
+            bench[io_type] = json.loads(out)
+            if bench[io_type]["bytes"] != size:
+                fail(f"rbd: bench {io_type}: {out}")
+            step(f"bench_{io_type}", size, [ms])
+        brng = random.Random(0)         # the tool's own payload
+        payload = bytes(brng.randrange(256) for _ in range(obj))
+        models["bench0"] = bytearray(payload * n_obj)
+        # 4. a snapshot, then partial writes: EC read-modify-writes
+        _, ms = rbd_cmd(mon, "snap", "create", "img0@s1")
+        step("snap_s1", 0, [ms])
+        wrng = np.random.default_rng(seed + 1)
+        offs = [int(x) for x in wrng.integers(0, size - write, n_writes)]
+        model = models["img0"]
+        part_ms = []
+        with Image(wio, "img0") as img:
+            for off in offs:
+                data = wrng.integers(0, 256, size=write,
+                                     dtype=np.uint8).tobytes()
+                _, ms = timed(img.write, off, data)
+                model[off:off + write] = data
+                part_ms.append(ms)
+        step("partial_writes", n_writes * write, part_ms)
+        with Image(wio, "img0", read_only=True) as img:
+            got, ms, _k2 = read_whole(c, r, img, "head of img0")
+        same(got, bytes(model), "head of img0 after the partial writes")
+        step("read_head", size, ms)
+        with Image(wio, "img0", snapshot="s1") as img:
+            got, ms, _k2 = read_whole(c, r, img, "img0@s1")
+        same(got, seeded, "img0@s1")
+        step("read_s1", size, ms)
+        # 5. an incremental: s1 to s2 onto a second image holding s1
+        s2 = bytes(model)
+        _, ms0 = rbd_cmd(mon, "snap", "create", "img0@s2")
+        diff = os.path.join(tmp, "s1-s2.diff")
+        out, ms1 = rbd_cmd(mon, "export-diff", "img0@s2", diff,
+                           "--from-snap", "s1")
+        step("export_diff", 0, [ms0, ms1])
+        log(f"[rbd] export-diff: {out.strip()}")
+        _, ms0 = rbd_cmd(mon, "import", src, "img1")
+        _, ms1 = rbd_cmd(mon, "snap", "create", "img1@s1")
+        _, ms2 = rbd_cmd(mon, "import-diff", diff, "img1")
+        models["img1"] = bytearray(s2)
+        with Image(wio, "img1", read_only=True) as img:
+            got, ms, _k2 = read_whole(c, r, img, "img1")
+            snaps = [s["name"] for s in img.list_snaps()]
+        if snaps != ["s1", "s2"]:
+            fail(f"rbd: import-diff left img1 with the snapshots {snaps}")
+        same(got, s2, "img1 after import-diff against img0@s2")
+        step("import_diff", size, [ms0, ms1, ms2] + ms)
+        # 6. a clone of s1, one object written into it, flattened
+        _, ms0 = rbd_cmd(mon, "snap", "protect", "img0@s1")
+        _, ms1 = rbd_cmd(mon, "clone", "img0@s1", "child")
+        out, ms2 = rbd_cmd(mon, "children", "img0@s1")
+        if out.split() != ["child"]:
+            fail(f"rbd: children of img0@s1: {out!r}")
+        child = models["child"] = bytearray(seeded)
+        cw = rng.integers(0, 256, size=iobj, dtype=np.uint8).tobytes()
+        cobj = size // iobj // 2
+        with Image(wio, "child") as img:
+            _, ms3 = timed(img.write, cobj * iobj, cw)
+        child[cobj * iobj:(cobj + 1) * iobj] = cw
+        _, ms4 = rbd_cmd(mon, "flatten", "child")
+        with Image(wio, "child", read_only=True) as img:
+            got, ms, _k2 = read_whole(c, r, img, "child")
+        same(got, bytes(child), "child after flatten")
+        step("clone_flatten", size + iobj, [ms0, ms1, ms2, ms3, ms4] + ms)
+        # 7. one OSD down: both images read whole, degraded
+        c.kill_osd(RBD_KILL)
+        # the operator's `ceph osd down`: the cluster phase waits out
+        # the heartbeat grace
+        rc, outs, _ = r.mon_command({"prefix": "osd down",
+                                     "ids": [RBD_KILL]})
+        if rc:
+            fail(f"rbd: osd down: {outs}")
+        c.wait_for_osd_down(RBD_KILL, timeout=4 * CLUSTER_HB_GRACE)
+        wait_until(lambda: not r.objecter.osdmap.is_up(RBD_KILL), 60,
+                   f"the client's map to mark osd.{RBD_KILL} down", 0.05)
+        c.wait_for_clean(timeout=120)
+        step("kill")
+        deg_ms, decodes = [], []
+        omap_ = r.objecter.osdmap
+        for name in ("img0", "child"):
+            with Image(wio, name, read_only=True) as img:
+                got, ms, k2 = read_whole(c, r, img, f"degraded {name}")
+            same(got, bytes(models[name]), f"degraded read of {name}")
+            deg_ms += ms
+            for n, launched in enumerate(k2):
+                pgid = omap_.raw_pg_to_pg(omap_.object_locator_to_pg(
+                    f"rbd_data.{name}.{n:016x}", io.pool_id))
+                decodes.append(f"{name}.{n} {pgid} "
+                               f"{omap_.pg_to_up_acting_osds(pgid)[2]} "
+                               f"{launched}")
+        # osd.RBD_KILL's position is the hole in the acting set: a read
+        # decodes (gf_planes) when it is one of the k data shards
+        log("[rbd] degraded reads (object, pg, acting in the client's map, "
+            "gf_planes launches): " + "; ".join(decodes))
+        step("degraded_read", 2 * size, deg_ms)
+        dw = rng.integers(0, 256, size=iobj, dtype=np.uint8).tobytes()
+        with Image(wio, "img0") as img:
+            _, ms = timed(img.write, 0, dw)
+        model[:iobj] = dw
+        step("degraded_write", iobj, [ms])
+        # 8. the revive, until every PG is clean
+        c.revive_osd(RBD_KILL, timeout=60)
+        clock.daemons.append(c.osds[RBD_KILL])
+        wait_until(lambda: all(d.osdmap.is_up(RBD_KILL)
+                               for d in c.osds.values()), 120,
+                   f"every OSD to see osd.{RBD_KILL} up", 0.05)
+        wait_clean(c, "every PG clean after the revive")
+        step("recovery")
+        # 9. every data object's shards and hinfos, against the models
+        wait_until(lambda: all(d.osdmap.epoch == r.objecter.osdmap.epoch
+                               for d in c.osds.values()), 60,
+                   "the client and the OSDs on one map", 0.05)
+        clones = {"img0": {1: seeded, 2: s2}, "img1": {1: seeded}}
+        stored = {}
+        for oid in sorted(io.list_objects()):
+            if not oid.startswith("rbd_data."):
+                continue
+            name, _, rest = oid[len("rbd_data."):].rpartition(".")
+            objno, _, snap = rest.partition("@")
+            src_b = clones.get(name, {}).get(int(snap)) if snap \
+                else models.get(name)
+            if src_b is None:
+                fail(f"rbd: {oid!r} is no object the phase wrote")
+            n, oz = int(objno, 16), obj if name == "bench0" else iobj
+            stored[oid] = bytes(src_b[n * oz:(n + 1) * oz])
+        held = hold_shards(c, place_shards(c, io.pool_id, stored, "rbd"))
+        step("snapshot")
+        # 10. rbd-mirror: site B, the daemon on its own thread
+        cb, rb, iob, monb, _ = start_site(1)
+        d = MirrorDaemon(io, iob, interval=MIRROR_INTERVAL).start()
+        step("site_b")
+        mrng = np.random.default_rng(seed + 2)
+        rbd_cmd(mon, "create", "jimg", "--size", m_size, "--journaling")
+        jm = bytearray(m_size)
+        j_ms = []
+        with Image(wio, "jimg") as img:
+            for off in mrng.integers(0, m_size - m_write, m_writes):
+                off = int(off)
+                data = mrng.integers(0, 256, size=m_write,
+                                     dtype=np.uint8).tobytes()
+                _, ms = timed(img.write, off, data)
+                jm[off:off + m_write] = data
+                j_ms.append(ms)
+            doff = int(mrng.integers(0, m_size // 2)) & ~4095
+            _, ms = timed(img.discard, doff, m_size // 16)
+            jm[doff:doff + m_size // 16] = bytes(m_size // 16)
+            j_ms.append(ms)
+            shrunk = m_size * 3 // 4
+            _, ms = timed(img.resize, shrunk)
+            del jm[shrunk:]
+            j_ms.append(ms)
+            _, ms = timed(img.create_snap, "js1")
+            j_ms.append(ms)
+        t_last = time.perf_counter()
+        head = int(io.omap_get(_journal_oid("jimg"))["head_seq"])
+        step("journal_writes", m_writes * m_write, j_ms)
+        guarded(cb, rb.objecter, "the journal replay", wait_until,
+                lambda: d.positions.get("jimg") == head, 300,
+                f"the mirror daemon to replay jimg to {head}", 0.05)
+        lag = time.perf_counter() - t_last
+        for side, sio in (("A", wio), ("B", Watched(iob))):
+            with Image(sio, "jimg", read_only=True) as img:
+                if img.size() != shrunk:
+                    fail(f"rbd: jimg on site {side} is {img.size()} bytes, "
+                         f"not {shrunk}")
+                got, _ms, _k2 = read_whole(c if side == "A" else cb,
+                                      r if side == "A" else rb, img,
+                                      f"jimg on site {side}")
+            same(got, bytes(jm), f"jimg on site {side}")
+        with Image(iob, "jimg", snapshot="js1") as img:
+            same(img.read(0, shrunk), bytes(jm), "jimg@js1 on site B")
+        step("journal_replayed", 2 * shrunk)
+        _, ms0 = rbd_cmd(mon, "mirror", "demote", "jimg")
+        _, ms1 = rbd_cmd(monb, "mirror", "promote", "jimg")
+        with Image(iob, "jimg") as img:
+            img.write(0, b"written on site B")
+            same(img.read(0, 17), b"written on site B", "a write on B")
+        with Image(io, "jimg") as img:
+            try:
+                img.write(0, b"written on site A")
+            except ValueError as e:
+                if "non-primary" not in str(e):
+                    fail(f"rbd: a write on the demoted site A: {e}")
+            else:
+                fail("rbd: the demoted site A took a write")
+        step("failover", 0, [ms0, ms1])
+        rbd_cmd(mon, "create", "simg", "--size", m_size,
+                "--mirror-snapshot")
+        sm = bytearray(m_size)
+        s_ms = []
+
+        def synced(name):
+            try:
+                with Image(iob, "simg", read_only=True) as img:
+                    return name in img._hdr["snaps"]
+            except Exception:                   # noqa: BLE001 — not yet
+                return False
+
+        for round_ in range(2):
+            with Image(wio, "simg") as img:
+                for off in mrng.integers(0, m_size - m_write,
+                                         m_writes // 4):
+                    off = int(off)
+                    data = mrng.integers(0, 256, size=m_write,
+                                         dtype=np.uint8).tobytes()
+                    _, ms = timed(img.write, off, data)
+                    sm[off:off + m_write] = data
+                    s_ms.append(ms)
+            out, ms = rbd_cmd(mon, "mirror", "snapshot", "simg")
+            name = f".mirror.primary.{round_ + 1}"
+            if out.strip() != name:
+                fail(f"rbd: mirror snapshot simg: {out!r}")
+            s_ms.append(ms)
+            # synced before the next writes: a read at a snapshot that
+            # races a write to its object can return the write's bytes
+            # (Image._read_object_at_snap reads the head when no clone
+            # is listed yet)
+            guarded(cb, rb.objecter, f"the sync of {name}", wait_until,
+                    lambda: synced(name), 300,
+                    f"the mirror daemon to sync simg's {name}", 0.05)
+        with Image(Watched(iob), "simg", read_only=True) as img:
+            got, _ms, _k2 = read_whole(cb, rb, img, "simg on site B")
+        same(got, bytes(sm), "simg on site B")
+        step("snapshot_mirror", 2 * m_size, s_ms)
+        d.stop()
+        if d.errors:
+            fail(f"rbd: the mirror daemon's errors: {d.errors}")
+        positions = dict(d.positions)
+        engines = [dm.batch_engine.dump() for dm in clock.daemons]
+    finally:
+        for cl in clusters[::-1]:
+            cl.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_shards(held, {o: cpu_shards(ec_cpu, b) for o, b in stored.items()},
+                 {o: len(b) for o, b in stored.items()}, "rbd")
+    summed = {k: sum(e.get(k, 0) for e in engines)
+              for k in ("launches", "ops_completed", "recon_launches",
+                        "recon_ops_completed")}
+    summed["flushes"] = sum(v for e in engines for k, v in e.items()
+                            if k.startswith("flush_") and k != "flush_ms")
+    return {"steps": clock.steps, "engine": summed, "daemons": len(engines),
+            "objects": len(stored), "bench": bench, "lag_s": lag,
+            "positions": positions}
 
 
 def wait_until(pred, timeout: float, what: str, interval: float = 0.01):
@@ -3060,6 +3630,58 @@ def main():
         f"{eng['recon_ops_completed'] / max(eng['recon_launches'], 1):.2f} "
         f"ops a launch (host clock) on {card}")
 
+    # the block images: every count set to 0 just before the phase
+    build.reset_counts()
+    mark = build.counts()
+    log(f"[rbd] MiniCluster({CLUSTER_MONS} mons, {CLUSTER_OSDS} OSDs, "
+        f"device {dev}) on WALStores, the option defaults but the "
+        f"heartbeat grace; EC pool rbd k={K} m={M} jerasure reed_sol_van, "
+        f"pg_num {CLUSTER_PG_NUM}, rule 1; images of {RBD_SIZE >> 20} MiB "
+        f"at order {RBD_ORDER}, {RBD_WRITES} partial writes of "
+        f"{RBD_WRITE >> 10} KiB; site B MiniCluster(1 mon, {CLUSTER_OSDS} "
+        f"OSDs) for rbd-mirror, images of {MIRROR_SIZE >> 20} MiB with "
+        f"{MIRROR_WRITES} journaled writes of {MIRROR_WRITE >> 10} KiB, the "
+        f"daemon's pass {MIRROR_INTERVAL} s; scale cut: MiB images, not a "
+        f"deployment's GiB volumes")
+    rbd = rbd_phase(dev, CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_PG_NUM,
+                    RBD_SIZE, RBD_ORDER, RBD_WRITES, RBD_WRITE, MIRROR_SIZE,
+                    MIRROR_WRITES, MIRROR_WRITE)
+    close_phase("rbd")
+    rst = rbd["steps"]
+    for name, kernels in (("import", ("gf_words", "crc32c_batch")),
+                          ("bench_write", ("gf_words", "crc32c_batch")),
+                          ("partial_writes", ("gf_words", "crc32c_batch")),
+                          ("degraded_read", ("gf_expand", "gf_planes"))):
+        for k in kernels:
+            if rst[name]["launches"].get(k, 0) <= 0:
+                fail(f"rbd: {k} was not launched in the {name} step")
+
+    def mbps(name):
+        return rst[name]["bytes"] / rst[name]["s"] / 1e6
+
+    eng, pw = rbd["engine"], rst["partial_writes"]["ms"]
+    log(f"[rbd] import {mbps('import'):.2f} MB/s, export "
+        f"{mbps('export'):.2f} MB/s; bench write "
+        f"{rbd['bench']['write']['ops_per_sec']} ops/s "
+        f"{rbd['bench']['write']['mb_per_sec']} MB/s, read "
+        f"{rbd['bench']['read']['ops_per_sec']} ops/s "
+        f"{rbd['bench']['read']['mb_per_sec']} MB/s (the tool's own "
+        f"figures, {RBD_ORDER}-bit I/Os); partial writes of "
+        f"{RBD_WRITE >> 10} KiB median {float(np.median(pw)):.1f} ms, max "
+        f"{max(pw):.1f} ms; degraded read {mbps('degraded_read'):.2f} "
+        f"MB/s (img0 and child whole, osd.{RBD_KILL} down); revive to "
+        f"clean {rst['recovery']['s']:.3f} s; mirror lag from the last "
+        f"journaled event on A to B equal {rbd['lag_s']:.3f} s "
+        f"(positions {rbd['positions']}); every read and all "
+        f"{rbd['objects'] * (K + M)} shards and hinfos of the "
+        f"{rbd['objects']} rbd_data objects equal the host models and "
+        f"their CPU re-encode; engines summed over {rbd['daemons']} "
+        f"daemons: {eng['flushes']} write flushes, {eng['launches']} "
+        f"launches, {eng['ops_completed'] / max(eng['launches'], 1):.2f} "
+        f"ops a launch; {eng['recon_launches']} recon launches, "
+        f"{eng['recon_ops_completed'] / max(eng['recon_launches'], 1):.2f} "
+        f"ops a launch (host clock) on {card}")
+
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
     log(f"[launches] {json.dumps(phase_counts)}")
@@ -3079,7 +3701,9 @@ def main():
                         ("controlplane", "crush_straw2"),
                         ("controlplane", "pgmap_fold"),
                         ("rgw", "gf_words"), ("rgw", "crc32c_batch"),
-                        ("rgw", "gf_expand"), ("rgw", "gf_planes")):
+                        ("rgw", "gf_expand"), ("rgw", "gf_planes"),
+                        ("rbd", "gf_words"), ("rbd", "crc32c_batch"),
+                        ("rbd", "gf_expand"), ("rbd", "gf_planes")):
         if phase_counts[phase][name] <= 0:
             fail(f"kernel {name} was not launched on its phase {phase}")
 
@@ -3337,7 +3961,12 @@ def main():
             ("cluster", st, "write", ("write", "degraded_write")),
             ("cluster", st, "recon", ("degraded_read", "recovery")),
             ("rgw", gst, "write", ("put", "multipart_put")),
-            ("rgw", gst, "recon", ("degraded_get", "recovery"))):
+            ("rgw", gst, "recon", ("degraded_get", "recovery")),
+            ("rbd", rst, "write", ("import", "bench_write",
+                                   "partial_writes", "import_diff",
+                                   "clone_flatten", "degraded_write",
+                                   "journal_writes", "snapshot_mirror")),
+            ("rbd", rst, "recon", ("degraded_read", "recovery"))):
         agg = dict.fromkeys(("launches", "dispatch_s", "compute_s"), 0)
         wall_ms = busy = 0.0
         for name in names:
@@ -3346,8 +3975,9 @@ def main():
                 agg[k] += steps[name]["lanes"].get(lane, {}).get(k, 0)
             busy += sum(n * kernel_ms[k]
                         for k, n in steps[name]["launches"].items())
+        osds = f"{CLUSTER_OSDS} OSDs" + (" a site" if tag == "rbd" else "")
         log(f"[profile] {tag} {lane} lane ({' + '.join(names)} steps, "
-            f"{CLUSTER_OSDS} OSDs): {agg['launches']} profiled launches, "
+            f"{osds}): {agg['launches']} profiled launches, "
             f"dispatch {agg['dispatch_s'] * 1e3:.1f} ms, compute "
             f"{agg['compute_s'] * 1e3:.1f} ms summed over the daemons, "
             f"wall {wall_ms:.1f} ms; device busy <= {busy:.2f} ms "

@@ -24,6 +24,7 @@ of the class run in file order on one pair of clusters.
 """
 
 import json
+import threading
 import time
 
 import numpy as np
@@ -73,6 +74,40 @@ def payloads(seed):
             for n, s in zip(NAMES, SIZES)}
 
 
+def pin_pgls(objecter):
+    """Give a ceph_tpu client the port's pinned pgls.
+
+    ceph_tpu's Objecter sends every resend of an op to the PG its name
+    hashes to; a pgls (``IoCtx._pgls``) names no object, so a resent
+    pgls asks the PG of the empty name, and its reply, rc 0, stands as
+    the listing of the PG that was asked.  The resend loop resends a
+    pgls at its first tick (``_pgls`` never starts the op's schedule),
+    so any pgls slower than that tick can come back as another PG's
+    listing (ROADMAP.md §3; ``test_resent_pgls_stays_on_its_pg`` shows
+    it on ceph_tpu's client as it is).  The port pins the op to its PG.
+    The cross-package tests that list a pool hold the port against
+    ceph_tpu's client with this one fault mended: every resend of a
+    pgls goes to the PG the listing asked, as in the port."""
+    send = objecter._send_op
+    pins = {}
+
+    def pinned_send(op):
+        if not any(o.get("op") == "pgls" for o in op.ops):
+            return send(op)
+        # the first send is _pgls's own, to op.pgid; this is a resend
+        pin = pins.setdefault(op.tid, op.pgid)
+        target = (pin, objecter.osdmap.pg_to_up_acting_osds(pin)[3])
+        # every caller of _send_op holds objecter.lock, and so does
+        # every caller of _calc_target
+        objecter._calc_target = lambda _pool, _oid: target
+        try:
+            return send(op)
+        finally:
+            del objecter._calc_target
+
+    objecter._send_op = pinned_send
+
+
 @pytest.fixture(scope="class")
 def pair():
     """{pkg: (cluster, rados, {pool: ioctx})}, both started."""
@@ -83,6 +118,8 @@ def pair():
             out[pkg] = (c, None, None)
             c.start()
             r = c.rados()
+            if pkg == "ceph_tpu":
+                pin_pgls(r.objecter)
             rc, outs, _ = r.mon_command({
                 "prefix": "osd erasure-code-profile set", "name": "k4m2",
                 "profile": PROFILE})
@@ -117,10 +154,7 @@ def reply(fn):
 
 def settled(c, r):
     """Every PG clean on its primary, and the client and every OSD on
-    one map epoch.  ``list_objects`` skips a PG whose ``pgls`` is
-    answered with EAGAIN (both packages; the reply of a primary whose
-    map is not the client's), so a listing taken while a new epoch
-    spreads can miss objects."""
+    one map epoch: the state the script's listing describes."""
     epoch = r.objecter.osdmap.epoch
     for osd in c.osds.values():
         with osd.lock:
@@ -222,6 +256,53 @@ class TestClusterAgainstCephTpu:
         for k in ("flush_ms", "max_bytes", "max_ops", "recon_flush_ms",
                   "comp_segment_bytes", "bucket_floor", "recon_use_mesh"):
             assert dumps["port"][k] == dumps["ceph_tpu"][k], k
+
+    def test_resent_pgls_stays_on_its_pg(self, pair):
+        """A pool listing while one OSD cannot answer: the resent pgls
+        of each PG that OSD leads goes to that PG again in the port, so
+        the listing waits for it and is whole; ceph_tpu's client
+        resends it to the PG of the empty name, whose reply stands as
+        the PG's listing, and loses the held OSD's objects."""
+        data = payloads(1)
+        for pkg, (c, _r, _i) in pair.items():
+            r = c.rados()               # a client as its package has it
+            io = r.open_ioctx("rep")
+            for n in NAMES:
+                io.write_full(n, data[n])
+            m = r.objecter.osdmap
+            pid = m.pool_name["rep"]
+            pg = {n: m.raw_pg_to_pg(m.object_locator_to_pg(n, pid))
+                  for n in NAMES + [""]}
+            pgid = type(pg[""])
+            primary = {ps: m.pg_to_up_acting_osds(pgid(pid, ps))[3]
+                       for ps in range(m.pools[pid].pg_num)}
+            first = {}
+            for ps, o in primary.items():
+                first.setdefault(o, ps)
+            # an OSD that leads neither the empty name's PG nor an
+            # empty PG first in the listing's order
+            held = next(o for o, ps in sorted(first.items(),
+                                              key=lambda kv: kv[1])
+                        if o != primary[pg[""].seed] and ps != pg[""].seed
+                        and any(pg[n].seed == ps for n in NAMES))
+            out = []
+            lister = threading.Thread(
+                target=lambda: out.append(io.list_objects()))
+            with c.osds[held].lock:
+                lister.start()
+                # ceph_tpu's listing ends without the held OSD; the
+                # port's waits for it
+                lister.join(timeout=5.0)
+            lister.join(timeout=30.0)
+            assert out, pkg
+            lost = sorted(n for n in NAMES
+                          if primary[pg[n].seed] == held)
+            assert lost, pkg
+            if pkg == "port":
+                assert out[0] == sorted(NAMES)
+            else:
+                assert out[0] == sorted(set(NAMES) - set(lost))
+            r.shutdown()
 
     def test_stores_match(self, pair):
         views = {pkg: stores(c) for pkg, (c, _r, _i) in pair.items()}

@@ -649,3 +649,67 @@ def test_gateway_on_the_card(dev):
     assert len(manifest) == 4 + 2       # 4 stripes, then 2
     for name in ("gf_words", "crc32c_batch"):
         assert after[name] > before[name], name
+
+
+def test_rbd_image_and_mirror_on_the_card(dev):
+    """The port's block images on the card: a 4-OSD ``MiniCluster`` with
+    a k=2 m=1 EC pool (rule 1); an image of 4 objects of 64 KiB, a
+    snapshot, partial writes (EC read-modify-writes), the head and the
+    snapshot read back byte for byte, a clone flattened; then a second
+    cluster and ``MirrorDaemon.sync_once`` replaying a journaled image
+    onto it; the write lane's K1 and K6 launched."""
+    from ceph_tpu_torch.rbd import RBD, Image
+    from ceph_tpu_torch.rbd.mirror import MirrorDaemon
+    from ceph_tpu_torch.vstart import MiniCluster
+    rng = np.random.default_rng(29)
+    base = rng.integers(0, 256, size=4 << 16, dtype=np.uint8).tobytes()
+    clusters, ios = [], []
+    try:
+        for _ in range(2):
+            c = MiniCluster(n_mons=1, n_osds=4, device=dev)
+            clusters.append(c)
+            c.start()
+            r = c.rados()
+            rc, outs, _ = r.mon_command({
+                "prefix": "osd erasure-code-profile set", "name": "k2m1",
+                "profile": ["k=2", "m=1", "plugin=jerasure",
+                            "technique=reed_sol_van"]})
+            assert rc == 0, outs
+            r.create_pool("rbd", pg_num=4, pool_type="erasure",
+                          erasure_code_profile="k2m1", rule=1)
+            c.wait_for_clean(timeout=60)
+            ios.append(r.open_ioctx("rbd"))
+        io, io_b = ios
+        before = build.counts()
+        RBD().create(io, "img", len(base), order=16)
+        head = bytearray(base)
+        with Image(io, "img") as img:
+            img.write(0, base)
+            img.create_snap("s1")
+            for off in (100, 70000, 200001):
+                data = rng.integers(0, 256, size=5000,
+                                    dtype=np.uint8).tobytes()
+                img.write(off, data)
+                head[off:off + 5000] = data
+            assert img.read(0, len(base)) == bytes(head)
+            img.protect_snap("s1")
+        after = build.counts()
+        with Image(io, "img", snapshot="s1") as snap:
+            assert snap.read(0, len(base)) == base
+        RBD().clone(io, "img", "s1", "kid")
+        with Image(io, "kid") as kid:
+            kid.flatten()
+            assert kid.read(0, len(base)) == base
+        RBD().create(io, "jrn", 2 << 16, order=16, journaling=True)
+        with Image(io, "jrn") as img:
+            img.write(1000, base[:70000])
+        d = MirrorDaemon(io, io_b)
+        d.sync_once()
+        assert d.errors == []
+        with Image(io_b, "jrn", read_only=True) as img:
+            assert img.read(1000, 70000) == base[:70000]
+    finally:
+        for c in clusters:
+            c.stop()
+    for name in ("gf_words", "crc32c_batch"):
+        assert after[name] > before[name], name

@@ -26,6 +26,9 @@ name and byte of ``.rgw.data``, every OSD's store of the data pool,
 each package's ``S3Client`` against the other's gateway, and degraded
 GETs of every object with one OSD down, then its revive.
 
+ceph_tpu's gateway lists with the port's pinned pgls
+(``test_torch_cluster.pin_pgls``).
+
 Tolerance: exact.  Masked, and nothing else: the time fields ``mtime``
 and ``expires`` of omap rows and JSON replies, and the host and port in
 Swift's ``X-Storage-Url``.  Every wait polls against a deadline of at
@@ -55,6 +58,7 @@ from ceph_tpu_torch.rgw import gateway as PGW
 from ceph_tpu_torch.scrub.crc32c import crc32c
 from ceph_tpu_torch.tools import radosgw_admin as PADMIN
 from ceph_tpu_torch.vstart import MiniCluster as PMiniCluster
+from test_torch_cluster import pin_pgls
 
 torch.set_num_threads(1)
 
@@ -417,8 +421,7 @@ def live_objects(s: Side):
 
 def settled(s: Side):
     """Every PG clean on its primary and every OSD and the client on
-    one map epoch (``list_objects`` skips a PG answered with EAGAIN
-    while a new epoch spreads)."""
+    one map epoch."""
     epoch = s.r.objecter.osdmap.epoch
     for osd in s.c.osds.values():
         with osd.lock:
@@ -490,7 +493,13 @@ def pair():
                     "prefix": "osd erasure-code-profile set",
                     "name": "k2m1", "profile": PROFILE})
                 assert rc == 0, outs
-                gw = c.start_rgw(require_auth=True, stripe_size=STRIPE,
+                # the gateway lists pools (multipart uploads; the
+                # tests' reads of both pools) with the pinned pgls
+                gr = c.rados()
+                if pkg == "ceph_tpu":
+                    pin_pgls(gr.objecter)
+                gw = c.start_rgw(rados=gr, require_auth=True,
+                                 stripe_size=STRIPE,
                                  data_pool_opts=DATA_POOL_OPTS)
                 sides[pkg] = s = Side(pkg, c, r, gw)
                 c.wait_for_clean(timeout=120)
