@@ -8,9 +8,12 @@ every OSD (``None`` → the card, raising without one; ``"cpu"`` runs the
 kernels' plain versions).
 
 Threaded mode only.  ``start_rgw`` starts the single-zone object
-gateway (``rgw.RGWService``) on the cluster; ``procs=True`` (one OS
-process a daemon), the mgr, the MDS with CephFS, RBD and the multisite
-sync paths wait for later service-heads slices (ROADMAP).
+gateway (``rgw.RGWService``) on the cluster; ``start_mds``, ``kill_mds``,
+``fs_new``, ``cephfs`` and ``wait_for_active_mds`` run the MDS and mount
+CephFS clients (``fs_new`` makes replicated pools: create an EC data
+pool through librados and send ``fs new`` yourself).  ``procs=True``
+(one OS process a daemon), the mgr and the multisite sync paths wait for
+later service-heads slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import socket
 import tempfile
 import time
 
+from .mds.daemon import MDSDaemon
 from .mon.monitor import MonMap, Monitor
 from .msg import EntityAddr
 from .msg.fault import site_pairs
@@ -183,6 +187,8 @@ class MiniCluster:
         self.osds: dict[int, OSDaemon] = {}
         self.n_osds = n_osds
         self._clients: list[Rados] = []
+        self.mdss: dict[str, MDSDaemon] = {}
+        self._fs_clients: list = []
         self._rgws: list = []
         # (injector, src, dst) triples the site primitives installed,
         # so heal_sites removes exactly what it added
@@ -409,6 +415,16 @@ class MiniCluster:
                 gw.shutdown()
             except Exception:
                 pass
+        for c in self._fs_clients:
+            try:
+                c.unmount()
+            except Exception:
+                pass
+        for mds in list(self.mdss.values()):
+            try:
+                mds.shutdown()
+            except Exception:
+                pass
         for c in self._clients:
             try:
                 c.shutdown()
@@ -457,6 +473,48 @@ class MiniCluster:
                         **kw).start()
         self._rgws.append(gw)
         return gw
+
+    # -- mds / cephfs ------------------------------------------------------
+    def start_mds(self, name: str, **kw) -> MDSDaemon:
+        kw.setdefault("auth", self.auth)
+        mds = MDSDaemon(name, self.monmap, **kw).start()
+        self.mdss[name] = mds
+        return mds
+
+    def kill_mds(self, name: str):
+        """Crash an MDS (no journal flush) — the failover fixture."""
+        self.mdss.pop(name).kill()
+
+    def fs_new(self, fs_name: str = "cephfs", *, pg_num: int = 8,
+               size: int = 2) -> None:
+        """Create the metadata/data pools and the filesystem."""
+        r = self.rados()
+        for pool in (f"{fs_name}_metadata", f"{fs_name}_data"):
+            r.create_pool(pool, pg_num=pg_num, size=size)
+        rc, outs, _ = r.mon_command({
+            "prefix": "fs new", "fs_name": fs_name,
+            "metadata": f"{fs_name}_metadata",
+            "data": f"{fs_name}_data"})
+        if rc != 0:
+            raise RuntimeError(f"fs new failed: {outs}")
+
+    def cephfs(self, fs_name: str = "cephfs", **kw):
+        from .cephfs.client import CephFS
+        kw.setdefault("auth", self.auth)
+        fs = CephFS(self.monmap, fs_name=fs_name, **kw).mount()
+        self._fs_clients.append(fs)
+        return fs
+
+    def wait_for_active_mds(self, fs_name: str = "cephfs",
+                            timeout: float = 20.0) -> str:
+        """→ name of the active MDS once one is promoted and serving."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for name, mds in self.mdss.items():
+                if mds.state == "active":
+                    return name
+            time.sleep(0.05)
+        raise TimeoutError("no active MDS")
 
     # -- fault fabric ------------------------------------------------------
     def partition_osds(self, a: int, b: int, *,

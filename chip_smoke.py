@@ -217,6 +217,34 @@ time):
      and MB/s, partial-write median and max, revive to clean, the
      mirror lag from the last journaled event to B equal, the write
      lane's ops a launch summed over the daemons);
+   - cephfs (``cephfs_phase``), on a ``MiniCluster`` of its own started
+     after the rbd phase's have stopped (3 mons, 11 OSDs,
+     ``device=cuda``, WALStores, the option defaults but the heartbeat
+     grace), every launch count set to 0 just before it, as upstream's
+     "Erasure code with CephFS" sets it up: a replicated metadata pool
+     (size 3, 16 PGs) and an EC data pool k=8 m=3 ``jerasure
+     reed_sol_van`` of 32 PGs on rule 1, both created through librados
+     and read back from the mon, ``fs new`` by ``mon_command``; MDS
+     ``a`` active and ``b`` standby at the daemon's defaults; one
+     client at Ceph's default layout (4 MiB objects): mdtest "easy" over
+     4 directories of 16 empty files (mkdir, create, stat, readdir,
+     rename, unlink, ops/s a verb); 8 files of 4 MiB and one of 16 MiB,
+     each object one ``write`` call, read back byte for byte; 8 seeded
+     partial writes of 64 KiB into the 16 MiB file (EC read-modify-
+     writes) against a host model; 16 files acked, one request resent
+     under its tid, the active MDS killed with its journal unflushed,
+     the time until the standby is active, every acked name and size
+     and the resend's first answer back; osd.3 marked down by ``osd
+     down`` and every file read degraded one object a read, each read's
+     hole and gf_planes launches logged; the revive until every PG is
+     clean; every OSD's shards and hinfos of every data object against
+     a re-encode of the host models on the CPU and the host CRC-32C; the
+     16 MiB file unlinked and its data objects gone; one ``[cephfs]``
+     line a step (wall, bytes, each op's latency with their median and
+     max, launches) and a summary line (ops/s a verb, write, read and
+     degraded read MB/s, partial-write median and max, the failover's
+     seconds and unflushed journal events, spurious failovers, revive
+     to clean, the MDS's perf counters, the write lane's ops a launch);
 4. check what came out: every write's shards against the numpy oracle
    ``rs.encode_oracle`` and its hinfo digests against a host CRC-32C,
    the rebuilt shards against the originals, every scrub digest
@@ -237,8 +265,8 @@ time):
    ``[controlplane]`` line (health, summary, numpy and device folds with
    the copy-in, K11's graph-timed ms); then
    ``[profile]`` lines: per lane (write, recon, comp, fingerprint, store,
-   and the cluster's, the gateway's and the block images' write and
-   recon lanes summed over their daemons)
+   and the cluster's, the gateway's, the block images' and the file
+   system's write and recon lanes summed over their daemons)
    and for the crush mappings, the device profiler's launches, dispatch,
    compute (the host's wait at the CUDA events) and gap against the lane's wall,
    and a device-busy estimate (every launch at its kernel's graph-timed
@@ -348,6 +376,20 @@ MIRROR_SIZE, MIRROR_WRITES, MIRROR_WRITE = 8 << 20, 8, 64 << 10
 # the daemon's pass: each one lists the remote pool and reads every
 # journal whole, in the process that serves both sites
 MIRROR_INTERVAL = 1.0
+# cephfs: upstream's "Erasure code with CephFS" (replicated metadata
+# pool of 16 PGs, EC data pool), Ceph's default layout of 4 MiB objects;
+# mdtest "easy" at 4 directories of 16 empty files, 8 files of one
+# object and one of 4, 8 partial writes of 64 KiB, 16 files acked
+# before the MDS failover; cut from a deployment's millions of files.
+# At 4 x 64 files the mdtest pass took 105 s of a 177.8 s phase (create
+# 14, rename 9.7, unlink 4.3 ops/s) and the smoke 835 s on an H100 80GB
+# HBM3 host, where a slow one had spent 717 s before the rbd phase
+FS_META_PG = 16
+FS_DIRS, FS_FILES = 4, 16
+FS_WHOLE, FS_BIG_OBJS = 8, 4
+FS_WRITES, FS_WRITE = 8, 64 << 10
+FS_ACKED = 16
+FS_KILL = 3
 
 
 def fail(msg: str):
@@ -1232,6 +1274,24 @@ def dump_stuck(c, objecter, oid: str):
     faulthandler.dump_traceback(all_threads=True)
 
 
+def dump_sessions(c):
+    """Each OSD's map epoch and mon session (its rank, whether it is
+    connected, seconds since the mon last answered, its
+    subscriptions), then every thread's stack (on stderr): what an OSD
+    whose map stopped advancing waits on."""
+    import faulthandler
+    now = time.monotonic()
+    for i, d in sorted(c.osds.items()):
+        mc = d.monc
+        con = mc._con
+        log(f"[stuck] osd.{i}: map epoch {d.osdmap.epoch}, mon session "
+            f"rank {mc._cur_rank}, connected "
+            f"{con is not None and con.is_connected}, last answer "
+            f"{now - mc._last_ack:.1f} s ago, monc map epoch "
+            f"{mc.osdmap_epoch}, subscriptions {mc._subs}")
+    faulthandler.dump_traceback(all_threads=True)
+
+
 def cluster_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
                   pg_num: int, rewrite: int, seed: int = 31) -> dict:
     """The port's live cluster on ``dev``, driven through librados:
@@ -1468,6 +1528,65 @@ def latencies(ms: list) -> str:
             f"(each: {', '.join(f'{x:.1f}' for x in ms)})")
 
 
+def timed(fn, *a, **kw):
+    """fn(*a, **kw) and its wall on the host clock, in ms."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def guarded(tag: str, c, objecter, what: str, fn, *a):
+    """fn(*a) on a thread of its own: the phase ``tag`` fails if it
+    raises or is not done in ``STUCK_S``, and then ``dump_stuck`` dumps
+    every op of ``objecter`` in flight first."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*a)
+        except BaseException as e:          # noqa: BLE001
+            box["err"] = e
+
+    th = threading.Thread(target=run, name=f"{tag}-{what}", daemon=True)
+    th.start()
+    th.join(STUCK_S)
+    if th.is_alive():
+        with objecter.lock:
+            oids = sorted({op.oid for op in objecter.inflight.values()})
+        for oid in oids:
+            dump_stuck(c, objecter, oid)
+        fail(f"{tag}: {what} not done in {STUCK_S:.0f} s")
+    if "err" in box:
+        fail(f"{tag}: {what}: {box['err']!r}")
+    return box["out"]
+
+
+def same(tag: str, got: bytes, want: bytes, what: str):
+    """Fail the phase ``tag`` unless ``got`` equals ``want``."""
+    if got != want:
+        diff = next(i for i in range(min(len(got), len(want)))
+                    if got[i] != want[i]) if len(got) == len(want) \
+            else None
+        fail(f"{tag}: {what}: {len(got)} bytes differ from the "
+             f"{len(want)} expected (first differing byte {diff})")
+
+
+def wait_clean(tag: str, c, n_pgs: int, what: str, timeout: float = 300.0):
+    """Every PG clean (``pgs_clean``); after ``timeout`` the phase
+    ``tag`` fails with the OSDs up in osd.0's map and the PGs not
+    clean."""
+    deadline = time.monotonic() + timeout
+    while not pgs_clean(c, n_pgs):
+        if time.monotonic() > deadline:
+            dump_sessions(c)
+            m = c.osds[0].osdmap
+            fail(f"{tag}: {what}: not in {timeout:.0f} s; OSDs up in "
+                 f"osd.0's map (epoch {m.epoch}) "
+                 f"{[o for o in sorted(c.osds) if m.is_up(o)]}; PGs not "
+                 f"clean {unclean_pgs(c)}")
+        time.sleep(0.05)
+
+
 def rgw_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
               part: int, parts: int, pg_num: int, seed: int = 43) -> dict:
     """The port's object gateway on ``dev``: ``MiniCluster(n_mons,
@@ -1519,11 +1638,6 @@ def rgw_phase(dev, n_mons: int, n_osds: int, n_obj: int, obj: int,
 
     def step(name, ms=()):
         clock.close(name, latencies(list(ms)))["ms"] = list(ms)
-
-    def timed(fn, *a):
-        t0 = time.perf_counter()
-        out = fn(*a)
-        return out, (time.perf_counter() - t0) * 1e3
 
     def md5(b):
         return hashlib.md5(b).hexdigest()
@@ -1818,11 +1932,6 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         out = clock.close(name, extra)
         out["ms"], out["bytes"] = list(ms), nbytes
 
-    def timed(fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        return out, (time.perf_counter() - t0) * 1e3
-
     class Watched:
         """An ioctx whose failed reads (other than a missing object)
         are recorded: ``Image.read`` turns them into zeros."""
@@ -1847,31 +1956,6 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
             fail(f"rbd: {what}: {len(read_errors)} object reads failed "
                  f"(Image.read returns zeros for them): {read_errors[:4]}")
 
-    def guarded(c, objecter, what, fn, *a):
-        """fn(*a) on a thread of its own: its state dumped by
-        ``dump_stuck`` and the phase failed if it is not done in
-        ``STUCK_S``."""
-        box = {}
-
-        def run():
-            try:
-                box["out"] = fn(*a)
-            except BaseException as e:          # noqa: BLE001
-                box["err"] = e
-
-        th = threading.Thread(target=run, name=f"rbd-{what}", daemon=True)
-        th.start()
-        th.join(STUCK_S)
-        if th.is_alive():
-            with objecter.lock:
-                oids = sorted({op.oid for op in objecter.inflight.values()})
-            for oid in oids:
-                dump_stuck(c, objecter, oid)
-            fail(f"rbd: {what} not done in {STUCK_S:.0f} s")
-        if "err" in box:
-            fail(f"rbd: {what}: {box['err']!r}")
-        return box["out"]
-
     def read_whole(c, r, img, what):
         """The image read whole, one object an I/O: (bytes, each I/O's
         ms, each I/O's gf_planes launches)."""
@@ -1879,34 +1963,14 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         step_ = img.layout.object_size
         for off in range(0, img.size(), step_):
             before = build.counts()["gf_planes"]
-            piece, t = timed(guarded, c, r.objecter, f"{what} at {off}",
-                             img.read, off, min(step_, img.size() - off))
+            piece, t = timed(guarded, "rbd", c, r.objecter,
+                             f"{what} at {off}", img.read, off,
+                             min(step_, img.size() - off))
             out += piece
             ms.append(t)
             k2.append(build.counts()["gf_planes"] - before)
         checked(what)
         return bytes(out), ms, k2
-
-    def same(got, want, what):
-        if got != want:
-            diff = next(i for i in range(min(len(got), len(want)))
-                        if got[i] != want[i]) if len(got) == len(want) \
-                else None
-            fail(f"rbd: {what}: {len(got)} bytes differ from the "
-                 f"{len(want)} expected (first differing byte {diff})")
-
-    def wait_clean(c, what, timeout=300.0):
-        """Every PG clean (``pgs_clean``); after ``timeout`` the phase
-        fails with the OSDs up in osd.0's map and the PGs not clean."""
-        deadline = time.monotonic() + timeout
-        while not pgs_clean(c, pg_num):
-            if time.monotonic() > deadline:
-                m = c.osds[0].osdmap
-                fail(f"rbd: {what}: not in {timeout:.0f} s; OSDs up in "
-                     f"osd.0's map (epoch {m.epoch}) "
-                     f"{[o for o in sorted(c.osds) if m.is_up(o)]}; PGs "
-                     f"not clean {unclean_pgs(c)}")
-            time.sleep(0.05)
 
     def start_site(nm):
         c = MiniCluster(n_mons=nm, n_osds=n_osds, device=dev,
@@ -1922,8 +1986,8 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
             fail(f"rbd: erasure-code-profile set: {outs}")
         r.create_pool("rbd", pg_num=pg_num, pool_type="erasure",
                       erasure_code_profile="k8m3", rule=1)
-        wait_clean(c, f"{nm}-mon site's PGs clean after the pool's "
-                      f"creation")
+        wait_clean("rbd", c, pg_num, f"{nm}-mon site's PGs clean after "
+                   f"the pool's creation")
         # the pool as the mon has it: tools/rbd.py makes a replicated
         # pool of 8 PGs when the named one is missing
         rc, outs, dump = r.mon_command({"prefix": "osd dump"})
@@ -1989,7 +2053,7 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         dst = os.path.join(tmp, "export.bin")
         _, ms = rbd_cmd(mon, "export", "img0", dst)
         with open(dst, "rb") as f:
-            same(f.read(), seeded, "export of img0")
+            same("rbd", f.read(), seeded, "export of img0")
         step("export", size, [ms])
         # 3. rbd bench, one object an I/O
         bench = {}
@@ -2022,11 +2086,11 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         step("partial_writes", n_writes * write, part_ms)
         with Image(wio, "img0", read_only=True) as img:
             got, ms, _k2 = read_whole(c, r, img, "head of img0")
-        same(got, bytes(model), "head of img0 after the partial writes")
+        same("rbd", got, bytes(model), "head of img0 after the partial writes")
         step("read_head", size, ms)
         with Image(wio, "img0", snapshot="s1") as img:
             got, ms, _k2 = read_whole(c, r, img, "img0@s1")
-        same(got, seeded, "img0@s1")
+        same("rbd", got, seeded, "img0@s1")
         step("read_s1", size, ms)
         # 5. an incremental: s1 to s2 onto a second image holding s1
         s2 = bytes(model)
@@ -2045,7 +2109,7 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
             snaps = [s["name"] for s in img.list_snaps()]
         if snaps != ["s1", "s2"]:
             fail(f"rbd: import-diff left img1 with the snapshots {snaps}")
-        same(got, s2, "img1 after import-diff against img0@s2")
+        same("rbd", got, s2, "img1 after import-diff against img0@s2")
         step("import_diff", size, [ms0, ms1, ms2] + ms)
         # 6. a clone of s1, one object written into it, flattened
         _, ms0 = rbd_cmd(mon, "snap", "protect", "img0@s1")
@@ -2062,7 +2126,7 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         _, ms4 = rbd_cmd(mon, "flatten", "child")
         with Image(wio, "child", read_only=True) as img:
             got, ms, _k2 = read_whole(c, r, img, "child")
-        same(got, bytes(child), "child after flatten")
+        same("rbd", got, bytes(child), "child after flatten")
         step("clone_flatten", size + iobj, [ms0, ms1, ms2, ms3, ms4] + ms)
         # 7. one OSD down: both images read whole, degraded
         c.kill_osd(RBD_KILL)
@@ -2082,7 +2146,7 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         for name in ("img0", "child"):
             with Image(wio, name, read_only=True) as img:
                 got, ms, k2 = read_whole(c, r, img, f"degraded {name}")
-            same(got, bytes(models[name]), f"degraded read of {name}")
+            same("rbd", got, bytes(models[name]), f"degraded read of {name}")
             deg_ms += ms
             for n, launched in enumerate(k2):
                 pgid = omap_.raw_pg_to_pg(omap_.object_locator_to_pg(
@@ -2106,7 +2170,7 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         wait_until(lambda: all(d.osdmap.is_up(RBD_KILL)
                                for d in c.osds.values()), 120,
                    f"every OSD to see osd.{RBD_KILL} up", 0.05)
-        wait_clean(c, "every PG clean after the revive")
+        wait_clean("rbd", c, pg_num, "every PG clean after the revive")
         step("recovery")
         # 9. every data object's shards and hinfos, against the models
         wait_until(lambda: all(d.osdmap.epoch == r.objecter.osdmap.epoch
@@ -2156,7 +2220,7 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
         t_last = time.perf_counter()
         head = int(io.omap_get(_journal_oid("jimg"))["head_seq"])
         step("journal_writes", m_writes * m_write, j_ms)
-        guarded(cb, rb.objecter, "the journal replay", wait_until,
+        guarded("rbd", cb, rb.objecter, "the journal replay", wait_until,
                 lambda: d.positions.get("jimg") == head, 300,
                 f"the mirror daemon to replay jimg to {head}", 0.05)
         lag = time.perf_counter() - t_last
@@ -2168,15 +2232,15 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
                 got, _ms, _k2 = read_whole(c if side == "A" else cb,
                                       r if side == "A" else rb, img,
                                       f"jimg on site {side}")
-            same(got, bytes(jm), f"jimg on site {side}")
+            same("rbd", got, bytes(jm), f"jimg on site {side}")
         with Image(iob, "jimg", snapshot="js1") as img:
-            same(img.read(0, shrunk), bytes(jm), "jimg@js1 on site B")
+            same("rbd", img.read(0, shrunk), bytes(jm), "jimg@js1 on site B")
         step("journal_replayed", 2 * shrunk)
         _, ms0 = rbd_cmd(mon, "mirror", "demote", "jimg")
         _, ms1 = rbd_cmd(monb, "mirror", "promote", "jimg")
         with Image(iob, "jimg") as img:
             img.write(0, b"written on site B")
-            same(img.read(0, 17), b"written on site B", "a write on B")
+            same("rbd", img.read(0, 17), b"written on site B", "a write on B")
         with Image(io, "jimg") as img:
             try:
                 img.write(0, b"written on site A")
@@ -2217,12 +2281,12 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
             # races a write to its object can return the write's bytes
             # (Image._read_object_at_snap reads the head when no clone
             # is listed yet)
-            guarded(cb, rb.objecter, f"the sync of {name}", wait_until,
+            guarded("rbd", cb, rb.objecter, f"the sync of {name}", wait_until,
                     lambda: synced(name), 300,
                     f"the mirror daemon to sync simg's {name}", 0.05)
         with Image(Watched(iob), "simg", read_only=True) as img:
             got, _ms, _k2 = read_whole(cb, rb, img, "simg on site B")
-        same(got, bytes(sm), "simg on site B")
+        same("rbd", got, bytes(sm), "simg on site B")
         step("snapshot_mirror", 2 * m_size, s_ms)
         d.stop()
         if d.errors:
@@ -2243,6 +2307,374 @@ def rbd_phase(dev, n_mons: int, n_osds: int, pg_num: int, size: int,
     return {"steps": clock.steps, "engine": summed, "daemons": len(engines),
             "objects": len(stored), "bench": bench, "lag_s": lag,
             "positions": positions}
+
+
+def cephfs_phase(dev, n_mons: int, n_osds: int, pg_num: int, meta_pg: int,
+                 obj: int, n_dirs: int, n_files: int, n_whole: int,
+                 big_objs: int, n_writes: int, write: int, n_acked: int,
+                 seed: int = 53) -> dict:
+    """The port's file system on ``dev``, as upstream's "Erasure code
+    with CephFS" sets it up: ``MiniCluster(n_mons, n_osds, device=dev)``
+    on WALStores with the OSDs' options at their defaults but the
+    heartbeat grace; a replicated metadata pool ``cephfs_metadata``
+    (size 3, ``meta_pg`` PGs) and an EC data pool ``cephfs_data`` (k=8
+    m=3 ``jerasure reed_sol_van``, ``pg_num`` PGs, rule 1), both created
+    through librados and read back from the mon, then ``fs new`` by
+    ``mon_command``; MDS ``a`` (active) and ``b`` (standby) at the
+    daemon's defaults; one client of a fixed name at a layout of
+    ``obj``-byte objects, one object a stripe.  Steps, each with its
+    wall time, bytes, each op's latency and kernel launches: mdtest
+    "easy" (IO500's metadata test) over ``n_dirs`` directories of
+    ``n_files`` empty files, one step a verb (mkdir, create, stat,
+    readdir, rename, unlink); ``n_whole`` files of one object and one of
+    ``big_objs`` objects, each object one ``write`` call, read back byte
+    for byte; ``n_writes`` seeded writes of ``write`` bytes at seeded
+    offsets into the big file (EC read-modify-writes) against a host
+    model; ``n_acked`` small files written, one request resent under its
+    tid, the active MDS killed with its journal unflushed, the time
+    until the standby is active, every acked name and size and the
+    resend's first answer back; osd ``FS_KILL`` marked down by ``osd
+    down`` and every file read degraded, one object a read, each read's
+    hole and gf_planes launches logged; the revive until every PG is
+    clean; every OSD's shards and hinfos of every data object against a
+    re-encode of the host models on the CPU and the host CRC-32C; the
+    big file unlinked and its data objects gone.  Any wrong byte, name
+    or size, an MDS not active in its wait, a read not done in
+    ``STUCK_S`` (dumped by ``dump_stuck``) or a failed op fails the
+    phase; a change of the active MDS outside the failover step is
+    printed as a spurious failover."""
+    from ceph_tpu_torch.ec import create_erasure_code
+    from ceph_tpu_torch.kernels import build
+    from ceph_tpu_torch.mds.daemon import data_oid
+    from ceph_tpu_torch.osd.osdmap import TYPE_ERASURE, TYPE_REPLICATED
+    from ceph_tpu_torch.osdc.librados import ObjectNotFound
+    from ceph_tpu_torch.osdc.striper import FileLayout
+    from ceph_tpu_torch.vstart import MiniCluster
+    profile = {"plugin": "jerasure", "technique": "reed_sol_van",
+               "k": K, "m": M}
+    ec_cpu = create_erasure_code(profile, device="cpu")
+    rng = np.random.default_rng(seed)
+    clock = StepClock("cephfs", dev)
+    osd_config = {"osd_heartbeat_grace": CLUSTER_HB_GRACE,
+                  "device_profiling_enable": True}
+    n_pgs = pg_num + meta_pg
+    models = {}             # path → its bytes now
+    expect = ["a"]          # the MDS that should be active
+    spurious = []
+
+    def actives():
+        return sorted(n for n, m in c.mdss.items() if m.state == "active")
+
+    def step(name, nbytes=0, ms=(), extra=""):
+        now = actives()
+        if now != expect:
+            spurious.append((name, now))
+            log(f"[cephfs] spurious failover: after {name} the active MDS "
+                f"is {now}, not {expect}")
+            expect[:] = now
+        out = clock.close(name, (f", {nbytes / 1e6:.1f} MB" if nbytes
+                                 else "") + latencies(list(ms)) + extra)
+        out["ms"], out["bytes"] = list(ms), nbytes
+        return out
+
+    def guard(what, fn, *a):
+        return guarded("cephfs", c, fs.rados.objecter, what, fn, *a)
+
+    def ops(what, fn, args_list):
+        """fn(*args) for each args, guarded and timed: (results, ms)."""
+        out, ms = [], []
+        for a in args_list:
+            got, t = timed(guard, f"{what} {a[0]}", fn, *a)
+            out.append(got)
+            ms.append(t)
+        return out, ms
+
+    def read_objects(path, what):
+        """The file read one object at a time: (bytes, each read's ms,
+        each read's gf_planes launches)."""
+        out, ms, k2 = bytearray(), [], []
+        fd = fs.open(path, "r")
+        size = len(models[path])
+        for off in range(0, size, obj):
+            before = build.counts()["gf_planes"]
+            piece, t = timed(guard, f"{what} of {path} at {off}",
+                             fs.read, fd, min(obj, size - off), off)
+            out += piece
+            ms.append(t)
+            k2.append(build.counts()["gf_planes"] - before)
+        fs.close(fd)
+        return bytes(out), ms, k2
+
+    c = MiniCluster(n_mons=n_mons, n_osds=n_osds, device=dev,
+                    osd_config=osd_config)
+    try:
+        c.start(timeout=60)
+        clock.daemons.extend(c.osds.values())
+        r = c.rados()
+        rc, outs, _ = r.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "k8m3",
+            "profile": [f"{k}={v}" for k, v in profile.items()]})
+        if rc:
+            fail(f"cephfs: erasure-code-profile set: {outs}")
+        r.create_pool("cephfs_data", pg_num=pg_num, pool_type="erasure",
+                      erasure_code_profile="k8m3", rule=1)
+        r.create_pool("cephfs_metadata", pg_num=meta_pg, size=3)
+        wait_clean("cephfs", c, n_pgs,
+                   "every PG clean after the pools' creation")
+        rc, outs, dump = r.mon_command({"prefix": "osd dump"})
+        pools = {p["name"]: p for p in dump["pools"]} if rc == 0 else {}
+        got = [(n, pools[n]["type"], pools[n]["crush_rule"],
+                pools[n]["size"], pools[n]["pg_num"]) if n in pools else n
+               for n in ("cephfs_data", "cephfs_metadata")]
+        if got != [("cephfs_data", TYPE_ERASURE, 1, K + M, pg_num),
+                   ("cephfs_metadata", TYPE_REPLICATED, 0, 3, meta_pg)] \
+                or pools["cephfs_data"]["erasure_code_profile"] != "k8m3":
+            fail(f"cephfs: the pools as the mon has them (name, type, "
+                 f"rule, size, pg_num): {got}; {outs}")
+        log(f"[cephfs] pools read back from the mon: cephfs_data erasure "
+            f"profile k8m3 crush_rule 1 size {K + M} min_size "
+            f"{pools['cephfs_data']['min_size']} pg_num {pg_num}; "
+            f"cephfs_metadata replicated crush_rule 0 size 3 pg_num "
+            f"{meta_pg}")
+        rc, outs, _ = r.mon_command({
+            "prefix": "fs new", "fs_name": "cephfs",
+            "metadata": "cephfs_metadata", "data": "cephfs_data"})
+        if rc:
+            fail(f"cephfs: fs new: {outs}")
+        c.start_mds("a")
+        try:
+            if c.wait_for_active_mds(timeout=60) != "a":
+                fail(f"cephfs: MDS a is not the active one: {actives()}")
+            c.start_mds("b")
+            wait_until(lambda: r.mon_command({"prefix": "mds stat"})[2][
+                "standby_count"] == 1, 60, "MDS b to stand by", 0.1)
+            fs = c.cephfs(entity="client.smoke", default_layout=FileLayout(
+                stripe_unit=obj, stripe_count=1, object_size=obj))
+        except TimeoutError as e:
+            fail(f"cephfs: {e}")
+        data_pool = fs.data.pool_id
+        step("start")
+        # 1. mdtest "easy": every verb over every file, one step a verb
+        fs.mkdir("/mdtest")
+        dirs = [f"/mdtest/d{i}" for i in range(n_dirs)]
+        files = [f"{d}/f{j:03d}" for d in dirs for j in range(n_files)]
+        verbs = {}
+
+        def create(p):
+            fs.close(fs.open(p, "x"))
+
+        def stat_empty(p):
+            rec = fs.stat(p)
+            if rec["type"] != "file" or rec["size"] != 0:
+                raise AssertionError(f"stat {p}: {rec}")
+
+        def readdir(d, want):
+            names = fs.listdir(d)
+            if names != want:
+                raise AssertionError(f"readdir {d}: {names[:4]} ...")
+
+        _, ms = ops("mkdir", fs.mkdir, [(d,) for d in dirs])
+        verbs["mkdir"] = step("md_mkdir", 0, ms)
+        _, ms = ops("create", create, [(p,) for p in files])
+        verbs["create"] = step("md_create", 0, ms)
+        _, ms = ops("stat", stat_empty, [(p,) for p in files])
+        verbs["stat"] = step("md_stat", 0, ms)
+        names = [f"f{j:03d}" for j in range(n_files)]
+        _, ms = ops("readdir", readdir, [(d, names) for d in dirs])
+        verbs["readdir"] = step("md_readdir", 0, ms)
+        _, ms = ops("rename", fs.rename,
+                    [(p, p.replace("/f", "/r")) for p in files])
+        verbs["rename"] = step("md_rename", 0, ms)
+        ops("readdir", readdir,
+            [(d, [n.replace("f", "r") for n in names]) for d in dirs])
+        _, ms = ops("unlink", fs.unlink,
+                    [(p.replace("/f", "/r"),) for p in files])
+        verbs["unlink"] = step("md_unlink", 0, ms)
+        ops("readdir", readdir, [(d, []) for d in dirs])
+        # 2. whole files: each object written in one call, read back
+        fs.mkdir("/data")
+        sizes = {f"/data/w{i}": obj for i in range(n_whole)}
+        sizes["/data/big"] = big_objs * obj
+        w_ms = []
+        for path, size in sizes.items():
+            data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
+            fd = fs.open(path, "w")
+            for off in range(0, size, obj):
+                _, t = timed(guard, f"write of {path} at {off}", fs.write,
+                             fd, data[off:off + obj], off)
+                w_ms.append(t)
+            guard(f"close of {path}", fs.close, fd)
+            models[path] = bytearray(data)
+        total = sum(sizes.values())
+        step("write_files", total, w_ms)
+        got, r_ms = ops("read", fs.read_file, [(p,) for p in sizes])
+        for p, g in zip(sizes, got):
+            same("cephfs", g, bytes(models[p]), f"read of {p}")
+        step("read_files", total, r_ms)
+        # 3. partial writes into the big file: EC read-modify-writes
+        big = models["/data/big"]
+        wrng = np.random.default_rng(seed + 1)
+        p_ms = []
+        fd = fs.open("/data/big", "a")
+        for off in wrng.integers(0, len(big) - write, n_writes):
+            off = int(off)
+            data = wrng.integers(0, 256, size=write, dtype=np.uint8).tobytes()
+            _, t = timed(guard, f"partial write at {off}", fs.write, fd,
+                         data, off)
+            big[off:off + write] = data
+            p_ms.append(t)
+        guard("close of /data/big", fs.close, fd)
+        step("partial_writes", n_writes * write, p_ms)
+        got, t = timed(guard, "read of /data/big", fs.read_file,
+                       "/data/big")
+        same("cephfs", got, bytes(big), "/data/big after the partial writes")
+        step("read_partial", len(big), [t])
+        # 4. MDS failover right after acked creates, with no flush
+        fs.mkdir("/fo")
+        a_ms = []
+        for i in range(n_acked):
+            p = f"/fo/a{i:02d}"
+            data = rng.integers(0, 256, size=1000 * (i + 1),
+                                dtype=np.uint8).tobytes()
+            _, t = timed(guard, f"write_file {p}", fs.write_file, p, data)
+            models[p] = bytearray(data)
+            a_ms.append(t)
+        args = {"dir": fs.stat("/fo")["ino"], "excl": True,
+                "layout": {"stripe_unit": obj, "stripe_count": 1,
+                           "object_size": obj}}
+        victim = expect[0]
+        m = c.mdss[victim]
+        # the resend is answered from the journal's completed requests,
+        # which a flush trims (ROADMAP.md §3): the probe's create goes
+        # right after a flush and the kill, under the daemon's lock,
+        # follows while its event is still in the journal
+        for attempt in range(5):
+            last = m._last_flush
+            wait_until(lambda: m._last_flush != last, 60,
+                       f"mds.{victim} to flush its journal", 0.005)
+            args["name"] = dup = f"dup{attempt}"
+            first = guard(f"create of /fo/{dup}", fs._request, "create",
+                          args)
+            tid, seq = fs._tid, m._jseq - 1
+            with m.lock:
+                unflushed = m._jseq - m._jfirst
+                if m._jfirst <= seq:
+                    t0 = time.perf_counter()
+                    c.kill_mds(victim)
+                    break
+        else:
+            fail(f"cephfs: mds.{victim} flushed its journal before the kill "
+                 f"in each of 5 tries")
+        try:
+            survivor = c.wait_for_active_mds(timeout=60)
+        except TimeoutError as e:
+            fail(f"cephfs: after the kill of mds.{victim}: {e}")
+        fail_s = time.perf_counter() - t0
+        expect[:] = [survivor]
+        top = fs._tid
+        fs._tid = tid - 1               # the resend, under its first tid
+        again, t_re = timed(guard, f"resend of the create of /fo/{dup}",
+                            fs._request, "create", args)
+        fs._tid = top
+        if again != first:
+            fail(f"cephfs: the resent create got {again}, not its first "
+                 f"answer {first}")
+        want = sorted([f"dup{i}" for i in range(attempt + 1)]
+                      + [f"a{i:02d}" for i in range(n_acked)])
+        if guard("readdir /fo", fs.listdir, "/fo") != want:
+            fail("cephfs: the names acked before the failover are not all "
+                 "there after it")
+        for i in range(n_acked):
+            p = f"/fo/a{i:02d}"
+            size = guard(f"stat {p}", fs.stat, p)["size"]
+            if size != len(models[p]):
+                fail(f"cephfs: {p} is {size} bytes after the failover, not "
+                     f"{len(models[p])}")
+            same("cephfs", guard(f"read {p}", fs.read_file, p),
+                 bytes(models[p]), f"{p} after the failover")
+        step("failover", sum(1000 * (i + 1) for i in range(n_acked)),
+             a_ms + [t_re], f"; {unflushed} journal events unflushed at "
+             f"the kill of mds.{victim} (try {attempt + 1}), "
+             f"mds.{survivor} active {fail_s:.3f} s after it")
+        # 5. one OSD down: every file read degraded, one object a read;
+        # each object's hole is osd.FS_KILL's shard in the map before
+        omap_ = fs.rados.objecter.osdmap
+        inos = {p: guard(f"stat {p}", fs.stat, p)["ino"] for p in models}
+        holes = {}
+        for path, b in models.items():
+            for n in range(-(-len(b) // obj)):
+                oid = data_oid(inos[path], n)
+                pgid = omap_.raw_pg_to_pg(omap_.object_locator_to_pg(
+                    oid, data_pool))
+                holes[oid] = (pgid, omap_.pg_to_up_acting_osds(
+                    pgid)[2].index(FS_KILL))
+        c.kill_osd(FS_KILL)
+        rc, outs, _ = r.mon_command({"prefix": "osd down",
+                                     "ids": [FS_KILL]})
+        if rc:
+            fail(f"cephfs: osd down: {outs}")
+        c.wait_for_osd_down(FS_KILL, timeout=4 * CLUSTER_HB_GRACE)
+        wait_until(lambda: not fs.rados.objecter.osdmap.is_up(FS_KILL), 60,
+                   f"the client's map to mark osd.{FS_KILL} down", 0.05)
+        c.wait_for_clean(timeout=120)
+        step("kill")
+        d_ms, decodes = [], []
+        for path in models:
+            got, ms, k2 = read_objects(path, "degraded read")
+            same("cephfs", got, bytes(models[path]),
+                 f"degraded read of {path}")
+            d_ms += ms
+            for n, launched in enumerate(k2):
+                oid = data_oid(inos[path], n)
+                decodes.append(f"{oid} {holes[oid][0]} {holes[oid][1]} "
+                               f"{launched}")
+        log("[cephfs] degraded reads (object, pg, the hole's shard, "
+            f"gf_planes launches; a hole below {K} is a data shard and "
+            "decodes): " + "; ".join(decodes))
+        step("degraded_read", sum(len(b) for b in models.values()), d_ms)
+        # 6. the revive, until every PG is clean
+        c.revive_osd(FS_KILL, timeout=60)
+        clock.daemons.append(c.osds[FS_KILL])
+        wait_until(lambda: all(d.osdmap.is_up(FS_KILL)
+                               for d in c.osds.values()), 120,
+                   f"every OSD to see osd.{FS_KILL} up", 0.05)
+        wait_clean("cephfs", c, n_pgs, "every PG clean after the revive")
+        step("recovery")
+        # 7. every data object's shards and hinfos, against the models
+        wait_until(lambda: all(
+            d.osdmap.epoch == fs.rados.objecter.osdmap.epoch
+            for d in c.osds.values()), 60,
+                   "the client and the OSDs on one map", 0.05)
+        stored = {data_oid(inos[p], n): bytes(b[n * obj:(n + 1) * obj])
+                  for p, b in models.items()
+                  for n in range(-(-len(b) // obj))}
+        held = hold_shards(c, place_shards(c, data_pool, stored, "cephfs"))
+        step("hold_shards")
+        # 8. the purge: the big file's data objects go with its name
+        big_oids = [data_oid(inos["/data/big"], n) for n in range(big_objs)]
+        _, t = timed(guard, "unlink /data/big", fs.unlink, "/data/big")
+        for oid in big_oids:
+            try:
+                fs.data.stat(oid)
+            except ObjectNotFound:
+                continue
+            fail(f"cephfs: {oid} is still in the data pool after the "
+                 f"unlink of /data/big")
+        step("purge", 0, [t])
+        perf = c.mdss[expect[0]].perf.dump()
+        engines = [dm.batch_engine.dump() for dm in clock.daemons]
+    finally:
+        c.stop()
+    check_shards(held, {o: cpu_shards(ec_cpu, b) for o, b in stored.items()},
+                 {o: len(b) for o, b in stored.items()}, "cephfs")
+    summed = {k: sum(e.get(k, 0) for e in engines)
+              for k in ("launches", "ops_completed", "recon_launches",
+                        "recon_ops_completed")}
+    summed["flushes"] = sum(v for e in engines for k, v in e.items()
+                            if k.startswith("flush_") and k != "flush_ms")
+    return {"steps": clock.steps, "engine": summed, "daemons": len(engines),
+            "objects": len(stored), "verbs": verbs, "failover_s": fail_s,
+            "unflushed": unflushed, "spurious": spurious, "mds_perf": perf}
 
 
 def wait_until(pred, timeout: float, what: str, interval: float = 0.01):
@@ -3682,6 +4114,60 @@ def main():
         f"{eng['recon_ops_completed'] / max(eng['recon_launches'], 1):.2f} "
         f"ops a launch (host clock) on {card}")
 
+    # the file system: every count set to 0 just before the phase
+    build.reset_counts()
+    mark = build.counts()
+    log(f"[cephfs] MiniCluster({CLUSTER_MONS} mons, {CLUSTER_OSDS} OSDs, "
+        f"device {dev}) on WALStores, the option defaults but the "
+        f"heartbeat grace; metadata pool replicated size 3, pg_num "
+        f"{FS_META_PG}; data pool EC k={K} m={M} jerasure reed_sol_van, "
+        f"pg_num {CLUSTER_PG_NUM}, rule 1; MDS a and b at the daemon's "
+        f"defaults; objects of {CLUSTER_OBJ >> 20} MiB; mdtest easy "
+        f"{FS_DIRS} x {FS_FILES} files, {FS_WHOLE} files of one object and "
+        f"one of {FS_BIG_OBJS}, {FS_WRITES} partial writes of "
+        f"{FS_WRITE >> 10} KiB, {FS_ACKED} files acked before the failover; "
+        f"scale cut: hundreds of files, not a deployment's millions")
+    cfs = cephfs_phase(dev, CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_PG_NUM,
+                       FS_META_PG, CLUSTER_OBJ, FS_DIRS, FS_FILES, FS_WHOLE,
+                       FS_BIG_OBJS, FS_WRITES, FS_WRITE, FS_ACKED)
+    close_phase("cephfs")
+    fst = cfs["steps"]
+    for name, kernels in (("write_files", ("gf_words", "crc32c_batch")),
+                          ("partial_writes", ("gf_words", "crc32c_batch")),
+                          ("degraded_read", ("gf_expand", "gf_planes"))):
+        for k in kernels:
+            if fst[name]["launches"].get(k, 0) <= 0:
+                fail(f"cephfs: {k} was not launched in the {name} step")
+
+    def fs_mbps(name):
+        return fst[name]["bytes"] / fst[name]["s"] / 1e6
+
+    eng, pw = cfs["engine"], fst["partial_writes"]["ms"]
+    verbs = ", ".join(f"{v} {len(st_['ms']) / st_['s']:.1f}"
+                      for v, st_ in cfs["verbs"].items())
+    log(f"[cephfs] mdtest easy ops/s: {verbs}; write "
+        f"{fs_mbps('write_files'):.2f} MB/s, read "
+        f"{fs_mbps('read_files'):.2f} MB/s ({FS_WHOLE} x "
+        f"{CLUSTER_OBJ >> 20} MiB and one of {FS_BIG_OBJS * CLUSTER_OBJ >> 20}"
+        f" MiB); partial writes of {FS_WRITE >> 10} KiB median "
+        f"{float(np.median(pw)):.1f} ms, max {max(pw):.1f} ms; MDS failover "
+        f"{cfs['failover_s']:.3f} s with {cfs['unflushed']} journal events "
+        f"unflushed, every acked name and size kept, the resend answered "
+        f"as first; spurious failovers {len(cfs['spurious'])} "
+        f"{cfs['spurious']}; degraded read {fs_mbps('degraded_read'):.2f} "
+        f"MB/s (osd.{FS_KILL} down); revive to clean "
+        f"{fst['recovery']['s']:.3f} s; every read and all "
+        f"{cfs['objects'] * (K + M)} shards and hinfos of the "
+        f"{cfs['objects']} data objects equal the host models and their "
+        f"CPU re-encode; the unlinked file's objects purged; MDS perf "
+        f"{json.dumps(cfs['mds_perf'])}; engines summed over "
+        f"{cfs['daemons']} daemons: {eng['flushes']} write flushes, "
+        f"{eng['launches']} launches, "
+        f"{eng['ops_completed'] / max(eng['launches'], 1):.2f} ops a "
+        f"launch; {eng['recon_launches']} recon launches, "
+        f"{eng['recon_ops_completed'] / max(eng['recon_launches'], 1):.2f} "
+        f"ops a launch (host clock) on {card}")
+
     launches = {k: sum(p[k] for p in phase_counts.values())
                 for k in build.KERNELS}
     log(f"[launches] {json.dumps(phase_counts)}")
@@ -3703,7 +4189,9 @@ def main():
                         ("rgw", "gf_words"), ("rgw", "crc32c_batch"),
                         ("rgw", "gf_expand"), ("rgw", "gf_planes"),
                         ("rbd", "gf_words"), ("rbd", "crc32c_batch"),
-                        ("rbd", "gf_expand"), ("rbd", "gf_planes")):
+                        ("rbd", "gf_expand"), ("rbd", "gf_planes"),
+                        ("cephfs", "gf_words"), ("cephfs", "crc32c_batch"),
+                        ("cephfs", "gf_expand"), ("cephfs", "gf_planes")):
         if phase_counts[phase][name] <= 0:
             fail(f"kernel {name} was not launched on its phase {phase}")
 
@@ -3966,7 +4454,10 @@ def main():
                                    "partial_writes", "import_diff",
                                    "clone_flatten", "degraded_write",
                                    "journal_writes", "snapshot_mirror")),
-            ("rbd", rst, "recon", ("degraded_read", "recovery"))):
+            ("rbd", rst, "recon", ("degraded_read", "recovery")),
+            ("cephfs", fst, "write", ("write_files", "partial_writes",
+                                      "failover")),
+            ("cephfs", fst, "recon", ("degraded_read", "recovery"))):
         agg = dict.fromkeys(("launches", "dispatch_s", "compute_s"), 0)
         wall_ms = busy = 0.0
         for name in names:

@@ -713,3 +713,43 @@ def test_rbd_image_and_mirror_on_the_card(dev):
             c.stop()
     for name in ("gf_words", "crc32c_batch"):
         assert after[name] > before[name], name
+
+
+def test_cephfs_on_an_ec_pool_on_the_card(dev):
+    """The port's file system on the card: a 4-OSD ``MiniCluster`` with
+    a replicated metadata pool, a k=2 m=1 EC data pool (rule 1), ``fs
+    new``, one MDS and one client at Ceph's default layout; one file of
+    4 MiB written in one call and read back byte for byte; the write
+    lane's K1 and K6 launched."""
+    from ceph_tpu_torch.vstart import MiniCluster
+    data = np.random.default_rng(31).integers(
+        0, 256, size=4 << 20, dtype=np.uint8).tobytes()
+    c = MiniCluster(n_mons=1, n_osds=4, device=dev)
+    try:
+        c.start()
+        r = c.rados()
+        rc, outs, _ = r.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "k2m1",
+            "profile": ["k=2", "m=1", "plugin=jerasure",
+                        "technique=reed_sol_van"]})
+        assert rc == 0, outs
+        r.create_pool("cephfs_data", pg_num=4, pool_type="erasure",
+                      erasure_code_profile="k2m1", rule=1)
+        r.create_pool("cephfs_metadata", pg_num=4, size=3)
+        c.wait_for_clean(timeout=60)
+        rc, outs, _ = r.mon_command({
+            "prefix": "fs new", "fs_name": "cephfs",
+            "metadata": "cephfs_metadata", "data": "cephfs_data"})
+        assert rc == 0, outs
+        c.start_mds("a")
+        c.wait_for_active_mds(timeout=60)
+        fs = c.cephfs(entity="client.cuda")
+        before = build.counts()
+        fs.write_file("/f", data)
+        after = build.counts()
+        assert fs.stat("/f")["size"] == len(data)
+        assert fs.read_file("/f") == data
+    finally:
+        c.stop()
+    for name in ("gf_words", "crc32c_batch"):
+        assert after[name] > before[name], name

@@ -1,7 +1,7 @@
 """The port's messenger against ceph_tpu's: wire format, modes, faults.
 
-Every message class of the port's ``msg/``, ``mon/messages.py`` and
-``osd/messages.py`` must encode seeded values to the same bytes as the
+Every message class of the port's ``msg/``, ``mon/messages.py``,
+``osd/messages.py`` and ``mds/messages.py`` must encode seeded values to the same bytes as the
 class of the same type in ceph_tpu's registry, and decode there; a
 port ``Messenger`` and a ceph_tpu ``Messenger`` exchange pings both ways
 in ``crc`` and ``secure`` modes and refuse a mode mismatch; a seeded
@@ -16,8 +16,10 @@ import time
 import numpy as np
 import pytest
 
-import ceph_tpu.mon.messages  # noqa: F401  (fills ceph_tpu's registry)
+import ceph_tpu.mds.messages  # noqa: F401  (fills ceph_tpu's registry)
+import ceph_tpu.mon.messages  # noqa: F401
 import ceph_tpu.osd.messages  # noqa: F401
+import ceph_tpu_torch.mds.messages  # noqa: F401
 import ceph_tpu_torch.mon.messages  # noqa: F401
 import ceph_tpu_torch.osd.messages  # noqa: F401
 from ceph_tpu.core import auth as RA
@@ -56,7 +58,7 @@ def _json_value(rng, depth=0):
 
 def _port_classes():
     wanted = ("ceph_tpu_torch.msg.", "ceph_tpu_torch.mon.messages",
-              "ceph_tpu_torch.osd.messages")
+              "ceph_tpu_torch.osd.messages", "ceph_tpu_torch.mds.messages")
     return sorted((cls for cls in PM.MSG_REGISTRY.values()
                    if cls.__module__.startswith(wanted)),
                   key=lambda c: c.TYPE)
